@@ -1,6 +1,6 @@
 """paris_tpu_torch — the FDK reconstruction path of ``paris_tpu`` in
-PyTorch, with its backprojection kernel written by hand in CUDA C++ for
-NVIDIA Hopper (sm_90a).
+PyTorch, with its backprojection kernel, and the kernels of its gather
+micro-benchmarks, written by hand in CUDA C++ for NVIDIA Hopper (sm_90a).
 
 The JAX package stays the reference.  This package imports ``torch`` and
 never ``jax``: the geometry, golden oracle, phantom projector and I/O

@@ -34,9 +34,9 @@ from paris_tpu.geometry import (
 from paris_tpu.io.sink import VolumeSink
 from paris_tpu.io.source import ProjectionSource
 from paris_tpu.utils.logging import StageTimers, fmt_duration
-from paris_tpu.utils.profiling import ThroughputMeter
 
 from .pipeline import Reconstructor, resolve_backend, stage_stream
+from .utils.profiling import ThroughputMeter, trace
 
 logger = logging.getLogger("paris_tpu_torch.app")
 
@@ -64,7 +64,8 @@ class ReconstructionJob:
     cache_projections: Optional[bool] = None   # None = auto (multi-block)
     resume: bool = False
     max_cache_bytes: int = 64 << 30
-    trace_dir: Optional[str] = None   # not yet ported: raises if set
+    # one torch.profiler Chrome trace per block's reconstruct stage
+    trace_dir: Optional[str] = None
     # Stop after computing this many NEW blocks (None = all); completed
     # blocks are durable in the sink manifest, so re-running with
     # resume=True completes the volume.
@@ -164,9 +165,6 @@ def run_job(job: ReconstructionJob) -> str:
 def _run_job(job: ReconstructionJob) -> str:
     t_start = time.perf_counter()
     timers = StageTimers()
-    if job.trace_dir:
-        raise StageConstructionError(
-            "trace_dir is not yet ported to paris_tpu_torch")
 
     try:
         full_geo = derive_volume_geometry(job.det)
@@ -278,7 +276,7 @@ def _run_job(job: ReconstructionJob) -> str:
             # compute overhead, not useful updates)
             meter = ThroughputMeter(
                 block.dim_z * vol_geo.dim_y * vol_geo.dim_x)
-            with timers.time("reconstruct"):
+            with timers.time("reconstruct"), trace(job.trace_dir, device):
                 if cached is not None:
                     data, angs = cached
                     volume = rec.accumulate(

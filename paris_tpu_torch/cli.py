@@ -2,8 +2,9 @@
 ``python -m paris_tpu_torch.cli`` (console script ``paris-tpu-torch``).
 
 Reuses ``paris_tpu.cli.build_parser`` so the flags match the JAX CLI and
-the reference's; ``--backend`` takes auto/cuda/torch.  The multi-device
-and profiling flags exit with code 2: they are not yet ported.
+the reference's; ``--backend`` takes auto/cuda/torch, and ``--trace-dir``
+writes one torch.profiler Chrome trace per z-block.  The multi-device
+flags exit with code 2: they are not yet ported.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ _UNPORTED = {
     "coordinator": "--coordinator",
     "num_processes": "--num-processes",
     "process_id": "--process-id",
-    "trace_dir": "--trace-dir",
 }
 
 
@@ -57,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
             action.help = "device-memory budget per z-block (GB)"
         elif action.dest == "block_dz":
             action.help = "force the z-block extent (slices)"
+        elif action.dest == "trace_dir":
+            action.help = ("write one torch.profiler Chrome-trace JSON per "
+                           "z-block's reconstruct stage into this directory")
         elif action.dest in _UNPORTED:
             action.help = "not yet ported to paris_tpu_torch"
         elif action.dest == "version":
@@ -146,6 +149,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                           if args.hbm_budget_gb else None),
         resume=args.resume,
         max_blocks=args.max_blocks,
+        trace_dir=args.trace_dir,
     )
     try:
         run_job(job)

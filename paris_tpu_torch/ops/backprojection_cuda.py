@@ -68,7 +68,7 @@ def backproject_chunk_cuda(
     C, n_col, n_row = projections.shape
     rx1, ry1, rz1 = roi_offset
     k = kernel_constants(grid)
-    lib = _build.load_library()
+    lib = _build.load_library("backproject")
     stream = torch.cuda.current_stream(volume.device).cuda_stream
     rc = lib.paris_bp_launch(
         volume.device.index, stream, volume.data_ptr(),

@@ -20,6 +20,7 @@ from paris_tpu.io.his import write_his
 from paris_tpu.phantom import cone_beam_project
 from paris_tpu_torch.app import ReconstructionJob, run_job
 from paris_tpu_torch.cli import main as cli_main
+from paris_tpu_torch.utils.profiling import annotate, trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -134,9 +135,50 @@ def test_run_job_fast_mode(scan, tmp_path):
     assert rmse < 1e-3, rmse
 
 
+def _traces(trace_dir):
+    """The Chrome-trace files in ``trace_dir``, each parsed."""
+    names = sorted(os.listdir(trace_dir))
+    assert all(n.endswith(".pt.trace.json") for n in names), names
+    traces = []
+    for n in names:
+        with open(os.path.join(trace_dir, n)) as f:
+            traces.append(json.load(f))
+    return traces
+
+
 def test_run_job_trace_dir_not_ported(scan, tmp_path):
-    with pytest.raises(StageConstructionError, match="not yet ported"):
-        run_job(_job(scan, tmp_path, trace_dir=str(tmp_path / "trace")))
+    """trace_dir on a multi-block job: one Chrome trace per block, and the
+    volume still matches the JAX CLI's."""
+    trace_dir = tmp_path / "trace"
+    out = run_job(_job(scan, tmp_path, prefix="vt", trace_dir=str(trace_dir),
+                       hbm_budget_bytes=_multi_block_budget(scan["vol"])))
+    traces = _traces(trace_dir)
+    assert len(traces) == 3
+    for t in traces:
+        assert any(e.get("ph") == "X" for e in t["traceEvents"])
+    _close(ddbvf.read_volume(out), scan["jax"]["full"])
+
+
+def test_annotate_without_nvtx(tmp_path, monkeypatch):
+    """Without a card, annotate names a region in the trace and never
+    touches NVTX (whose calls raise on a CPU build of torch)."""
+    def no_nvtx(*_a, **_k):
+        raise AssertionError("NVTX touched without a card")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda.nvtx, "range", no_nvtx)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", no_nvtx)
+    with trace(str(tmp_path)):
+        with annotate("paris-annotated-region"):
+            torch.ones(8).sum()
+    (t,) = _traces(tmp_path)
+    assert any(e.get("name") == "paris-annotated-region"
+               for e in t["traceEvents"])
+
+
+def test_trace_without_dir_is_a_no_op(tmp_path):
+    with trace(None), trace(""):
+        torch.ones(8).sum()
+    assert os.listdir(tmp_path) == []
 
 
 def test_two_tier_exceptions(tmp_path):
@@ -188,7 +230,7 @@ def test_cli_roi_reconstruction(scan, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--distributed"], ["--trace-dir", "t"],
+    ["--distributed"], ["--distributed", "--trace-dir", "t"],
     ["--distributed", "--coordinator", "h:1"],
     ["--distributed", "--num-processes", "2"],
     ["--distributed", "--process-id", "0"],
@@ -196,6 +238,15 @@ def test_cli_roi_reconstruction(scan, tmp_path):
 def test_cli_unported_flags_exit_2(scan, tmp_path, capsys, flags):
     assert _cli(scan, tmp_path, *flags) == 2
     assert "not yet ported to paris_tpu_torch" in capsys.readouterr().err
+
+
+def test_cli_trace_dir_writes_a_trace(scan, tmp_path):
+    trace_dir = tmp_path / "trace"
+    assert _cli(scan, tmp_path, "--name", "tr", "--trace-dir",
+                str(trace_dir)) == 0
+    (t,) = _traces(trace_dir)
+    assert any(e.get("ph") == "X" for e in t["traceEvents"])
+    _close(ddbvf.read_volume(str(tmp_path / "tr.ddbvf")), scan["jax"]["full"])
 
 
 def test_cli_backend_choices(capsys):
@@ -244,7 +295,9 @@ def test_port_never_imports_jax():
     points must not pull it in."""
     code = ("import sys, paris_tpu_torch, paris_tpu_torch.cli, "
             "paris_tpu_torch.app, paris_tpu_torch.pipeline, "
-            "paris_tpu_torch.ops; "
+            "paris_tpu_torch.ops, paris_tpu_torch.utils.profiling, "
+            "paris_tpu_torch.benchmarks.gather_micro, "
+            "paris_tpu_torch.benchmarks.gather_micro2; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)

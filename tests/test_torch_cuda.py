@@ -1,5 +1,6 @@
-"""The CUDA backprojection kernel against its plain PyTorch version, on
-the card.  Every test here is marked ``cuda`` and skips without a card.
+"""The CUDA kernels (backprojection, gather micro-benchmarks K3a and
+K3b) against their plain PyTorch versions, on the card.  Every test here
+is marked ``cuda`` and skips without a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
+from paris_tpu_torch.benchmarks import gather_micro as gm
+from paris_tpu_torch.benchmarks import gather_micro2 as gm2
 from paris_tpu_torch.ops.backprojection_cuda import (backproject_chunk,
                                                      backproject_chunk_cuda)
 from paris_tpu_torch.ops.backprojection_torch import (backproject_chunk_torch,
@@ -115,3 +118,67 @@ def test_wrapper_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         backproject_chunk_cuda(vol0, p, s.cpu(), c, grid)
     assert backproject_chunk_cuda.launches == before
+
+
+# ------------------------------------------- gather micro-benchmarks K3a/K3b
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,S", [("empty", 32)] + list(gm.CASES))
+def test_gather_micro_kernel_matches_plain_on_card(cuda_device, mode, S):
+    """Every block slice of the kernel's output equals the plain tile, as
+    int32."""
+    tab, idx = gm.inputs(cuda_device)
+    plain = gm.gather_micro_torch(mode, S, tab, idx)
+    before = gm.gather_micro_cuda.launches
+    out = gm.gather_micro_cuda(mode, S, tab, idx)
+    torch.cuda.synchronize(cuda_device)
+    assert gm.gather_micro_cuda.launches == before + 1
+    assert out.shape == (gm.BLOCKS, 64, 128)
+    assert torch.equal(out, plain.expand_as(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", gm2.MODES)
+def test_gather_micro2_kernel_matches_plain_on_card(cuda_device, mode):
+    k0, tab, idx = gm2.inputs(cuda_device)
+    plain = gm2.gather_micro2_torch(mode, k0, tab, idx)
+    before = gm2.gather_micro2_cuda.launches
+    out = gm2.gather_micro2_cuda(mode, k0, tab, idx)
+    torch.cuda.synchronize(cuda_device)
+    assert gm2.gather_micro2_cuda.launches == before + 1
+    assert out.shape == (gm2.BLOCKS, 64, 128)
+    assert torch.equal(out, plain.expand_as(out))
+
+
+@pytest.mark.cuda
+def test_gather_micro2_kernel_clamps_windows(cuda_device):
+    k0, tab, idx = gm2.inputs(cuda_device)
+    far = k0 + 40
+    for mode in ("dyn_read", "dyn_take2"):
+        out = gm2.gather_micro2_cuda(mode, far, tab, idx, blocks=2)
+        plain = gm2.gather_micro2_torch(mode, far, tab, idx)
+        torch.cuda.synchronize(cuda_device)
+        assert torch.equal(out, plain.expand_as(out))
+
+
+@pytest.mark.cuda
+def test_gather_wrappers_refuse_bad_inputs(cuda_device):
+    tab, idx = gm.inputs(cuda_device)
+    k0, tab2, _ = gm2.inputs(cuda_device)
+    before = (gm.gather_micro_cuda.launches, gm2.gather_micro2_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gm.gather_micro_cuda("lane", 128, tab.cpu(), idx)
+    with pytest.raises(ValueError, match="cpu"):
+        gm.gather_micro_cuda("lane", 128, tab, idx.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        gm.gather_micro_cuda("lane", 128, tab.float(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.gather_micro_cuda("lane", 128, tab.transpose(1, 2), idx)
+    with pytest.raises(ValueError, match="blocks"):
+        gm.gather_micro_cuda("lane", 128, tab, idx, blocks=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gm2.gather_micro2_cuda("dyn_take", k0, tab2.cpu(), idx)
+    with pytest.raises(ValueError, match="int32"):
+        gm2.gather_micro2_cuda("dyn_take", k0.long(), tab2, idx)
+    assert (gm.gather_micro_cuda.launches,
+            gm2.gather_micro2_cuda.launches) == before
