@@ -28,10 +28,22 @@ Phases (each raises on failure; the script then exits non-zero):
      against plain version on the card, int32 equality in every block
      slice; then both main()s, the entry points a user runs, with their
      launch counts; ns per gather beside the plain version's.
+  5. the distributed path and the detector-row band (K1c):
+     a. the kernel at the two (512, 1024, 1024) config-3 blocks, fed only
+        the block's band of detector rows (as the job feeds it), in exact
+        and fast mode: equal bit for bit to the kernel fed the whole
+        detector, and within 1e-4 * max|plain| of the plain version on
+        the same band; the band's rows and the kernel's ms banded and
+        unbanded (CUDA events);
+     b. phase 3's fast job again through cli.main with --distributed: a
+        world-1 NCCL group, real all-gathers, all_reduce and barriers.
+        Same RMSE and launch gates; its ddbvf must equal phase 3's fast
+        job's byte for byte.  Job seconds beside the single-device job's.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists the kernels with their launches, errors and times (K1: ms per
-launch at the (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile of 64
+it lists the kernels with their launches (K1: the jobs of phases 3 and 5b,
+each counted from 0 just before it), errors and times (K1: ms per launch
+at the (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile of 64
 gathers, the kernel's from a launch of 256 tiles).
 """
 
@@ -225,11 +237,35 @@ def _rel_rmse(a, b):
                  / np.abs(b).max())
 
 
+def _gate_job(label, out, vol, golden):
+    """The job's ddbvf: its dimensions, and the relative RMSE of the gate
+    slabs against golden_fdk_stream.  Returns the RMSEs; raises on a
+    failed gate."""
+    import numpy as np
+    from paris_tpu.io import ddbvf
+    if ddbvf.open_meta(out) != (vol.dim_x, vol.dim_y, vol.dim_z):
+        raise AssertionError(f"{label}: wrong ddbvf dimensions")
+    rmse = {}
+    for (z0, dz), ref in zip(SLABS, golden):
+        got = ddbvf.read_slices(out, z0, dz)
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: bad slab at z {z0}")
+        rmse[f"z{z0}..{z0 + dz - 1}"] = _rel_rmse(got, ref)
+        if z0 == SLABS[0][0]:            # the two slices at the seam
+            for k in (1, 2):
+                rmse[f"z{z0 + k}"] = _rel_rmse(got[k], ref[k])
+    bad = {k: v for k, v in rmse.items()
+           if not (math.isfinite(v) and v <= GATE_RMSE)}
+    if bad:
+        raise AssertionError(f"{label}: RMSE gate {GATE_RMSE:g} failed "
+                             f"at {bad}")
+    return rmse
+
+
 def phase_end_to_end(workdir):
     import numpy as np
     from paris_tpu.geometry import plan_z_blocks
     from paris_tpu.golden import golden_fdk_stream
-    from paris_tpu.io import ddbvf
     from paris_tpu.io.geometry_file import dump_geometry_file
     from paris_tpu.io.his import write_his
     from paris_tpu.phantom import cone_beam_project
@@ -284,31 +320,20 @@ def phase_end_to_end(workdir):
                 f"{label}: kernel launched {launched} times, expected "
                 f"{n_blocks} blocks x {per_job // n_blocks} chunks")
         out = os.path.join(workdir, f"{name}.ddbvf")
-        if ddbvf.open_meta(out) != (vol.dim_x, vol.dim_y, vol.dim_z):
-            raise AssertionError(f"{label}: wrong ddbvf dimensions")
-        rmse = {}
-        for (z0, dz), ref in zip(SLABS, golden):
-            got = ddbvf.read_slices(out, z0, dz)
-            if got.shape != ref.shape or not np.isfinite(got).all():
-                raise AssertionError(f"{label}: bad slab at z {z0}")
-            rmse[f"z{z0}..{z0 + dz - 1}"] = _rel_rmse(got, ref)
-            if z0 == SLABS[0][0]:            # the two slices at the seam
-                for k in (1, 2):
-                    rmse[f"z{z0 + k}"] = _rel_rmse(got[k], ref[k])
-        os.remove(out)
+        rmse = _gate_job(label, out, vol, golden)
+        if label != "fast":              # phase 5b compares with "fast"
+            os.remove(out)
         gups = vol.voxels * N_PROJ / seconds / 1e9
         print(f"  {label}: {seconds:.2f} s per job ({gups:.2f} Gupd/s end to "
               f"end), {n_blocks} blocks, {launched} launches, relative RMSE "
               + ", ".join(f"{k} {v:.2e}" for k, v in rmse.items()))
-        bad = {k: v for k, v in rmse.items()
-               if not (math.isfinite(v) and v <= GATE_RMSE)}
-        if bad:
-            raise AssertionError(f"{label}: RMSE gate {GATE_RMSE:g} failed "
-                                 f"at {bad}")
         results[label] = seconds
     launches = backproject_chunk_cuda.launches
     _read_traces(trace_dir, n_blocks, per_job // n_blocks)
-    return launches, results
+    job = dict(geo=geo, pdir=pdir, golden=golden, per_job=per_job,
+               fast_out=os.path.join(workdir, "c3fast.ddbvf"),
+               fast_s=results["fast"])
+    return launches, results, job
 
 
 def _busy_us(intervals):
@@ -429,6 +454,116 @@ def phase_micro():
     return launches, max_err, tile_ms
 
 
+def phase_band():
+    """5a: K1c at the config-3 blocks; returns max|banded - plain|."""
+    import numpy as np
+    import torch
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.ops.backprojection_torch import (
+        backproject_chunk_torch, make_bp_grid)
+    from paris_tpu_torch.pipeline import Reconstructor
+    from paris_tpu.geometry import detector_row_band
+    det, vol = _config3()
+    z0s = (0, BLOCK_DZ)
+    # the job's band: the widest over the blocks, placed per block by the
+    # Reconstructor the job builds
+    vp = max(hi - lo for lo, hi in (
+        detector_row_band(det, vol, z0, BLOCK_DZ) for z0 in z0s))
+    rec = Reconstructor(det, vol, chunk_size=CHUNK, backend="cuda",
+                        block_shape=(BLOCK_DZ, vol.dim_y, vol.dim_x),
+                        v_band_width=vp)
+    rng = np.random.default_rng(2025)
+    projs = rng.standard_normal((CHUNK, det.n_col, det.n_row)).astype(
+        np.float32)
+    phi = np.deg2rad(np.arange(CHUNK, dtype=np.float32) * 360.0 / N_PROJ
+                     + np.float32(0.7)).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    s = torch.as_tensor(np.sin(phi), device=dev)
+    c = torch.as_tensor(np.cos(phi), device=dev)
+    grid = make_bp_grid(det, vol)
+    shape = (BLOCK_DZ, vol.dim_y, vol.dim_x)
+    max_err = 0.0
+    print(f"detector-row band (K1c): {vp} of {det.n_col} rows "
+          f"({vp / det.n_col:.1%}); gates: banded == unbanded bit for bit, "
+          f"max|banded - plain| <= {GATE_KERNEL:g} * max|plain|")
+    for dtype, mode in ((torch.float32, "exact"), (torch.bfloat16, "fast")):
+        p = torch.as_tensor(projs, device=dev).to(dtype).contiguous()
+        for z0 in z0s:
+            v_lo = rec._v_band_lo(z0)
+            band = p[:, v_lo:v_lo + vp].contiguous()
+            zero = torch.zeros(shape, device=dev)
+            whole = backproject_chunk_cuda(zero.clone(), p, s, c, grid, z0)
+            banded = backproject_chunk_cuda(zero.clone(), band, s, c, grid,
+                                            z0, v_lo=v_lo)
+            plain = backproject_chunk_torch(zero.clone(), band, s, c, grid,
+                                            z0, v_lo=v_lo)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(banded, whole))
+            err = float((banded - plain).abs().max())
+            scale = float(plain.abs().max())
+            max_err = max(max_err, err)
+            ok = same and math.isfinite(err) and err <= GATE_KERNEL * scale
+            del whole, plain
+            acc = zero
+            ms_band = _time_ms(lambda: backproject_chunk_cuda(
+                acc, band, s, c, grid, z0, v_lo=v_lo), n=5, warmup=1)
+            ms_whole = _time_ms(lambda: backproject_chunk_cuda(
+                acc, p, s, c, grid, z0), n=5, warmup=1)
+            print(f"  {mode:<5} block z0={z0:<4} rows {v_lo}..{v_lo + vp - 1}"
+                  f": banded == unbanded {same}, max|err| {err:.3e} "
+                  f"max|plain| {scale:.3e}; kernel {ms_band:.3f} ms banded, "
+                  f"{ms_whole:.3f} ms unbanded  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1c check failed at {mode} z0={z0}")
+            del acc, banded, zero
+    return max_err
+
+
+def phase_distributed(workdir, job):
+    """5b: phase 3's fast job over a world-1 NCCL group; returns the
+    kernel's launches in that job."""
+    from paris_tpu_torch import cli
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    det, vol = _config3()
+    backproject_chunk_cuda.launches = 0          # this path starts here
+    t0 = time.perf_counter()
+    rc = cli.main(["--geometry", job["geo"], "--input", job["pdir"],
+                   "--output", workdir, "--name", "c3dist", "--backend",
+                   "cuda", "--block-dz", str(BLOCK_DZ), "--chunk-size",
+                   str(CHUNK), "--accuracy", "fast", "--distributed"])
+    seconds = time.perf_counter() - t0
+    launched = backproject_chunk_cuda.launches
+    if rc != 0:
+        raise RuntimeError(f"cli.main (--distributed) exited {rc}")
+    if launched != job["per_job"]:
+        raise AssertionError(f"--distributed: kernel launched {launched} "
+                             f"times, expected {job['per_job']}")
+    out = os.path.join(workdir, "c3dist.ddbvf")
+    rmse = _gate_job("--distributed", out, vol, job["golden"])
+    same = _same_bytes(out, job["fast_out"])
+    print(f"distributed (world 1, NCCL), fast: {seconds:.2f} s per job "
+          f"(single-device fast job {job['fast_s']:.2f} s), {launched} "
+          f"launches, relative RMSE "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rmse.items())
+          + f"; ddbvf byte-identical to the single-device job: {same}")
+    if not same:
+        raise AssertionError("--distributed ddbvf differs from the "
+                             "single-device fast job's")
+    return launched
+
+
+def _same_bytes(a, b, block=64 << 20):
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(block), fb.read(block)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
@@ -436,8 +571,10 @@ def main() -> int:
     phase_build()
     max_abs_err, timings = phase_kernel()
     with tempfile.TemporaryDirectory(prefix="paris_smoke_") as workdir:
-        launches, _ = phase_end_to_end(workdir)
-    micro_launches, micro_err, tile_ms = phase_micro()
+        launches, _, job = phase_end_to_end(workdir)
+        micro_launches, micro_err, tile_ms = phase_micro()
+        max_abs_err = max(max_abs_err, phase_band())
+        launches += phase_distributed(workdir, job)
     ms, plain_ms = timings[("fast", 64)]
     kernels = [{
         "name": "bp_kernel (fast: bf16 projections, f32 arithmetic)",

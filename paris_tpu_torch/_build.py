@@ -37,7 +37,8 @@ LIBRARIES: Dict[str, Dict[str, tuple]] = {
     "backproject": {
         "paris_bp_launch": (
             [_i, _p, _p, _p, _i, _p, _p]   # device, stream, buffers
-            + [_i] * 9                     # C, n_col, n_row, dz, ny, nx, rx1, ry1, z0
+            + [_i] * 11                    # C, n_col, n_row, vp, v_lo,
+                                           # dz, ny, nx, rx1, ry1, z0
             + [_f] * 13,                   # geometry constants
             _i),
         "paris_bp_error_string": ([_i], ctypes.c_char_p),

@@ -3,8 +3,13 @@
 
 Reuses ``paris_tpu.cli.build_parser`` so the flags match the JAX CLI and
 the reference's; ``--backend`` takes auto/cuda/torch, and ``--trace-dir``
-writes one torch.profiler Chrome trace per z-block.  The multi-device
-flags exit with code 2: they are not yet ported.
+writes one torch.profiler Chrome trace per z-block.  ``--distributed``
+runs the job over a ``torch.distributed`` group, one process per card:
+
+    torchrun --nproc-per-node N -m paris_tpu_torch.cli --distributed ...
+
+or, one process each, ``--distributed --coordinator HOST:PORT
+--num-processes N --process-id I``; alone, it is a group of one.
 """
 
 from __future__ import annotations
@@ -29,15 +34,6 @@ logger = logging.getLogger("paris_tpu_torch.cli")
 BANNER = (f"paris_tpu_torch {__version__} — cone-beam CT (FDK) "
           f"reconstruction in PyTorch with a CUDA backprojection kernel")
 
-# argparse dest -> flag of the options that are not yet ported
-_UNPORTED = {
-    "distributed": "--distributed",
-    "coordinator": "--coordinator",
-    "num_processes": "--num-processes",
-    "process_id": "--process-id",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = _reference_parser()
     p.prog = "paris-tpu-torch"
@@ -60,8 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
         elif action.dest == "trace_dir":
             action.help = ("write one torch.profiler Chrome-trace JSON per "
                            "z-block's reconstruct stage into this directory")
-        elif action.dest in _UNPORTED:
-            action.help = "not yet ported to paris_tpu_torch"
+        elif action.dest == "distributed":
+            action.help = ("run over a torch.distributed group, one process "
+                           "per card (NCCL; gloo for --backend torch): from "
+                           "--coordinator/--num-processes/--process-id, else "
+                           "torchrun's environment, else a group of one")
         elif action.dest == "version":
             action.version = __version__
     return p
@@ -81,12 +80,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(geometry_format_help())
         return 0
 
-    for dest, flag in _UNPORTED.items():
-        if getattr(args, dest) not in (None, False):
-            print(f"error: {flag} is not yet ported to paris_tpu_torch",
-                  file=sys.stderr)
-            return 2
+    # identity checks, not truthiness: --process-id 0 is the most common
+    # process id and must hit the same validation as id 1
+    if (args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None) and not args.distributed:
+        print("error: --coordinator/--num-processes/--process-id require "
+              "--distributed", file=sys.stderr)
+        return 2
+    if not args.distributed:
+        return _main(args)
+    # before the first device query, so every rank binds its own card
+    from .parallel import multihost
+    try:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, args.backend)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: distributed initialization failed: {e}",
+              file=sys.stderr)
+        return 2
+    try:
+        return _main(args)
+    finally:
+        multihost.shutdown()
 
+
+def _main(args: argparse.Namespace) -> int:
     if not args.geometry:
         print("error: --geometry is required", file=sys.stderr)
         return 2
@@ -152,7 +170,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         trace_dir=args.trace_dir,
     )
     try:
-        run_job(job)
+        if args.distributed:
+            from .parallel.app import run_job_distributed
+            run_job_distributed(job)
+        else:
+            run_job(job)
     except ParisError as e:
         logger.critical("%s: %s", type(e).__name__, e)
         print(f"error: {e}", file=sys.stderr)

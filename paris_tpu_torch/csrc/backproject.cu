@@ -35,9 +35,18 @@
 // like the separate tensor operations of the plain version, so both pick the
 // same taps and differ only by the rounding of the lerp.
 //
-// Projections arrive as (C, n_col, n_row) contiguous, float (exact mode) or
+// Projections arrive as (C, vp, n_row) contiguous, float (exact mode) or
 // bf16 (fast mode, widened to f32 per tap); the accumulator is (dz, ny, nx)
 // contiguous with x minor and is updated in place.
+//
+// Detector-row band (the Pallas kernel's offs[3], backprojection_pallas.py:
+// 386, :546-555): the vp rows of a frame are detector rows [v_lo, v_lo + vp)
+// (a z-block samples only that band, geometry.detector_row_band), so a chunk
+// carries vp/n_col of the detector's bytes.  The border test still runs on
+// the whole detector (0 <= floor(v) <= n_col - 2); the tap row floor(v) - v_lo
+// is clamped into [0, vp - 2], so a band that misses a block reads wrong rows
+// of the buffer but never outside it.  v_lo = 0, vp = n_col is the unbanded
+// kernel, with the same arithmetic.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,7 +58,7 @@ constexpr int BY = 8;    // threads along y
 constexpr int ZR = 16;   // z slices per thread, held in registers
 
 struct BpParams {
-  int C, n_col, n_row;
+  int C, n_col, n_row, vp, v_lo;
   int dz, ny, nx;
   int rx1, ry1, z0;
   float off_x, off_y, off_z;
@@ -90,9 +99,10 @@ bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
   }
   const float xm = __fadd_rn(__fmul_rn((float)(p.rx1 + x), p.l_vx_x), p.off_x);
   const float ym = __fadd_rn(__fmul_rn((float)(p.ry1 + y), p.l_vx_y), p.off_y);
-  const size_t frame = (size_t)p.n_col * p.n_row;
+  const size_t frame = (size_t)p.vp * p.n_row;
   const float h_last = (float)(p.n_row - 2);   // last valid left tap
   const float v_last = (float)(p.n_col - 2);   // last valid upper tap
+  const int row_last = p.vp - 2;               // last upper tap in the band
 
   for (int c = 0; c < p.C; ++c) {
     const float sn = __ldg(sinp + c);
@@ -118,7 +128,8 @@ bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
       const float v0f = floorf(v);
       if (v0f >= 0.f && v0f <= v_last) {
         const float fv = __fsub_rn(v, v0f);
-        const size_t r0 = (size_t)(int)v0f * p.n_row;
+        const int row = min(max((int)v0f - p.v_lo, 0), row_last);
+        const size_t r0 = (size_t)row * p.n_row;
         const float q11 = tap(pc, r0);
         const float q21 = tap(pc, r0 + 1);
         const float q12 = tap(pc, r0 + p.n_row);
@@ -137,12 +148,13 @@ bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
 
 }  // namespace
 
-// Launches one backprojection of C projections into the accumulator on
-// `stream`.  Returns cudaGetLastError() after the launch (0 = launched).
+// Launches one backprojection of C projections (vp detector rows from v_lo)
+// into the accumulator on `stream`.  Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int paris_bp_launch(
     int device, void* stream, float* vol, const void* proj, int proj_bf16,
     const float* sinp, const float* cosp,
-    int C, int n_col, int n_row, int dz, int ny, int nx,
+    int C, int n_col, int n_row, int vp, int v_lo, int dz, int ny, int nx,
     int rx1, int ry1, int z0,
     float off_x, float off_y, float off_z,
     float l_vx_x, float l_vx_y, float l_vx_z,
@@ -150,7 +162,7 @@ extern "C" int paris_bp_launch(
     float h_min, float inv_lpr, float inv_lpc, float vb) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const BpParams p{C, n_col, n_row, dz, ny, nx, rx1, ry1, z0,
+  const BpParams p{C, n_col, n_row, vp, v_lo, dz, ny, nx, rx1, ry1, z0,
                    off_x, off_y, off_z, l_vx_x, l_vx_y, l_vx_z,
                    d_so, d_sd, safe_min, h_min, inv_lpr, inv_lpc, vb};
   const dim3 block(BX, BY, 1);

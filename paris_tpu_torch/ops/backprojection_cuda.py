@@ -22,7 +22,7 @@ from .backprojection_torch import (BpGrid, backproject_chunk_torch,
 __all__ = ["backproject_chunk_cuda", "backproject_chunk"]
 
 
-def _check(volume, projections, sin_phi, cos_phi):
+def _check(volume, projections, sin_phi, cos_phi, grid, v_lo):
     dev = volume.device
     if dev.type != "cuda":
         raise ValueError(f"backproject_chunk_cuda needs CUDA tensors, "
@@ -32,13 +32,20 @@ def _check(volume, projections, sin_phi, cos_phi):
                          f"{tuple(volume.shape)} {volume.dtype}")
     if projections.dtype not in (torch.float32, torch.bfloat16) \
             or projections.dim() != 3:
-        raise ValueError(f"projections must be (C, n_col, n_row) float32 "
+        raise ValueError(f"projections must be (C, vp, n_row) float32 "
                          f"or bfloat16, got {tuple(projections.shape)} "
                          f"{projections.dtype}")
-    C, n_col, n_row = projections.shape
-    if C < 1 or n_col < 2 or n_row < 2:
+    C, vp, n_row = projections.shape
+    n_col = grid.det.n_col
+    if C < 1 or vp < 2 or n_row < 2:
         raise ValueError(f"projections shape {tuple(projections.shape)} "
-                         "needs C >= 1 and a detector of at least 2 x 2")
+                         "needs C >= 1 and a band of at least 2 x 2")
+    if n_row != grid.det.n_row:
+        raise ValueError(f"projections have {n_row} columns, the detector "
+                         f"{grid.det.n_row}")
+    if not 0 <= v_lo <= n_col - vp:
+        raise ValueError(f"band of {vp} rows from v_lo={v_lo} does not lie "
+                         f"on the detector's {n_col} rows")
     for name, a in (("sin_phi", sin_phi), ("cos_phi", cos_phi)):
         if a.dtype != torch.float32 or tuple(a.shape) != (C,):
             raise ValueError(f"{name} must be ({C},) float32, got "
@@ -53,19 +60,21 @@ def _check(volume, projections, sin_phi, cos_phi):
 
 def backproject_chunk_cuda(
     volume: torch.Tensor,          # (dz, ny, nx) f32, contiguous, on the card
-    projections: torch.Tensor,     # (C, n_col, n_row) f32 or bf16, contiguous
+    projections: torch.Tensor,     # (C, vp, n_row) f32 or bf16, contiguous
     sin_phi: torch.Tensor,         # (C,) f32
     cos_phi: torch.Tensor,         # (C,) f32
     grid: BpGrid,
     z_offset: int = 0,
     roi_offset: Tuple[int, int, int] = (0, 0, 0),
+    v_lo: int = 0,                 # detector row of the band's first row
 ) -> torch.Tensor:
-    """Accumulate C projections into ``volume`` IN PLACE with the kernel;
-    returns ``volume``.  Adds one to ``backproject_chunk_cuda.launches``
-    per launch."""
-    _check(volume, projections, sin_phi, cos_phi)
+    """Accumulate C projections (detector rows [v_lo, v_lo + vp)) into
+    ``volume`` IN PLACE with the kernel; returns ``volume``.  Adds one to
+    ``backproject_chunk_cuda.launches`` per launch."""
+    v_lo = int(v_lo)
+    _check(volume, projections, sin_phi, cos_phi, grid, v_lo)
     dz, ny, nx = volume.shape
-    C, n_col, n_row = projections.shape
+    C, vp, n_row = projections.shape
     rx1, ry1, rz1 = roi_offset
     k = kernel_constants(grid)
     lib = _build.load_library("backproject")
@@ -74,7 +83,7 @@ def backproject_chunk_cuda(
         volume.device.index, stream, volume.data_ptr(),
         projections.data_ptr(), int(projections.dtype == torch.bfloat16),
         sin_phi.data_ptr(), cos_phi.data_ptr(),
-        C, n_col, n_row, dz, ny, nx,
+        C, grid.det.n_col, n_row, vp, v_lo, dz, ny, nx,
         int(rx1), int(ry1), int(rz1 + z_offset),
         k["off_x"], k["off_y"], k["off_z"],
         k["l_vx_x"], k["l_vx_y"], k["l_vx_z"],
@@ -93,14 +102,14 @@ backproject_chunk_cuda.launches = 0
 
 def backproject_chunk(volume, projections, sin_phi, cos_phi, grid,
                       z_offset: int = 0,
-                      roi_offset: Tuple[int, int, int] = (0, 0, 0)
-                      ) -> torch.Tensor:
+                      roi_offset: Tuple[int, int, int] = (0, 0, 0),
+                      v_lo: int = 0) -> torch.Tensor:
     """In-place backprojection of one chunk: the CUDA kernel for tensors
     on the card, the plain PyTorch version for tensors on the CPU."""
     if volume.device.type == "cuda":
         return backproject_chunk_cuda(volume, projections, sin_phi, cos_phi,
-                                      grid, z_offset, roi_offset)
+                                      grid, z_offset, roi_offset, v_lo)
     if volume.device.type == "cpu":
         return backproject_chunk_torch(volume, projections, sin_phi, cos_phi,
-                                       grid, z_offset, roi_offset)
+                                       grid, z_offset, roi_offset, v_lo)
     raise ValueError(f"no backprojection for device {volume.device}")

@@ -17,6 +17,14 @@ against on the card.  Math (reference src/openmp/backprojection.cpp:96-152):
 plus the Pallas kernel's clamp (backprojection_pallas.py:397-401): a
 voxel with s + d_so <= 1e-3*|d_so| adds 0.
 
+Detector-row band: the projections may hold only rows [v_lo, v_lo + vp)
+of the detector (``geometry.detector_row_band`` gives the rows a z-block
+can sample).  Validity is still decided on the whole detector (0 <=
+floor(v) <= n_col - 2, n_col from the grid); the tap row is floor(v) -
+v_lo, clamped into the band, so a band that does not cover a block reads
+wrong rows but never outside the buffer.  With v_lo = 0 and vp = n_col
+the band is the whole detector.
+
 The coordinates that decide a floor or the detector-border test are
 computed with the same float32 operations, in the same order and from
 the same float32 constants (``kernel_constants``) as the kernel, so the
@@ -97,12 +105,13 @@ def _coords(n: int, first: int, step: float, off: float, device):
 
 def backproject_chunk_torch(
     volume: torch.Tensor,          # (dz, ny, nx) f32 z-block accumulator
-    projections: torch.Tensor,     # (C, n_col, n_row) f32 or bf16, filtered
+    projections: torch.Tensor,     # (C, vp, n_row) f32 or bf16, filtered
     sin_phi: torch.Tensor,         # (C,) f32
     cos_phi: torch.Tensor,         # (C,) f32
     grid: BpGrid,
     z_offset: int = 0,             # global z of this block's first slice
     roi_offset: Tuple[int, int, int] = (0, 0, 0),  # (x1, y1, z1) ROI origin
+    v_lo: int = 0,                 # detector row of the band's first row
     max_temp_bytes: int = 256 << 20,
 ) -> torch.Tensor:
     """Accumulate a chunk of projections into ``volume`` IN PLACE and
@@ -114,10 +123,11 @@ def backproject_chunk_torch(
     """
     k = kernel_constants(grid)
     dz, ny, nx = volume.shape
-    C, n_col, n_row = projections.shape
+    C, vp, n_row = projections.shape
+    n_col = grid.det.n_col
     dev = volume.device
     rx1, ry1, rz1 = roi_offset
-    flat = projections.to(torch.float32).reshape(C, n_col * n_row)
+    flat = projections.to(torch.float32).reshape(C, vp * n_row)
 
     xs = _coords(nx, rx1, k["l_vx_x"], k["off_x"], dev)[None, :]
     ys = _coords(ny, ry1, k["l_vx_y"], k["off_y"], dev)[:, None]
@@ -147,7 +157,8 @@ def backproject_chunk_torch(
             v0f = torch.floor(v)
             fv = v - v0f
             valid = valid_h & (v0f >= 0.0) & (v0f <= n_col - 2)
-            base = v0f.clamp(0, n_col - 2).to(torch.int64) * n_row + h0
+            row = (v0f - v_lo).clamp(0, vp - 2)
+            base = row.to(torch.int64) * n_row + h0
             q11 = p[base]
             q21 = p[base + 1]
             q12 = p[base + n_row]

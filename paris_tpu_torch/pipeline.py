@@ -3,9 +3,10 @@
 
 Projections are processed in fixed-size chunks: a chunk is staged to
 the device (per-frame affine u16 in fast mode, float32 in exact mode),
-dequantized, cosine-weighted and ramp-filtered as one batch, then
-backprojected into a resident volume block, which is updated in place
-(the JAX package donated it).  Chunks are staged on worker threads
+cut to the detector-row band the block samples, dequantized,
+cosine-weighted and ramp-filtered as one batch, then backprojected into
+a resident volume block, which is updated in place (the JAX package
+donated it).  Chunks are staged on worker threads
 (``stage_stream``) so host quantization and host-to-device copies
 overlap the device's work on earlier chunks.
 """
@@ -21,7 +22,8 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from paris_tpu.geometry import DetectorGeometry, VolumeGeometry
+from paris_tpu.geometry import (DetectorGeometry, VolumeGeometry,
+                                detector_row_band)
 from .ops.weighting import weight_map
 from .ops.filtering import ramp_filter_spectrum, filter_projections
 from .ops.backprojection_torch import make_bp_grid
@@ -179,7 +181,9 @@ class Reconstructor:
     "exact" stages and backprojects float32 projections; "fast" stages
     per-frame affine u16 (half the host-to-device bytes) and hands the
     filtered chunk to the kernel as bf16, with float32 arithmetic in the
-    kernel.
+    kernel.  ``v_band_width``: weight, filter and backproject only that
+    many detector rows per step, the band a block of ``block_shape[0]``
+    slices samples (``_v_band_lo``); None = the whole detector.
     """
 
     def __init__(
@@ -192,6 +196,7 @@ class Reconstructor:
         backend: str = "auto",
         accuracy: str = "exact",
         device=None,
+        v_band_width: Optional[int] = None,
     ):
         if accuracy not in ("exact", "fast"):
             raise ValueError(f"accuracy must be 'exact' or 'fast', "
@@ -205,6 +210,10 @@ class Reconstructor:
         self.chunk_size = int(chunk_size)
         self.block_shape = tuple(block_shape or vol.shape_zyx)
         self.grid = make_bp_grid(det, vol)
+        # band rows per step: exactly the requested width (the JAX package
+        # rounded it up to 128 for the TPU's tiling)
+        self._vp = det.n_col if v_band_width is None else \
+            min(det.n_col, int(v_band_width))
         self._weights = weight_map(det, self.device)
         self._spectrum = ramp_filter_spectrum(det.n_row, det.l_px_row,
                                               self.device)
@@ -227,6 +236,20 @@ class Reconstructor:
                 chunk = np.pad(chunk, ((0, pad), (0, 0), (0, 0)))
                 ang = np.pad(ang, (0, pad))
             yield chunk, ang
+
+    def _v_band_lo(self, z0_global: int) -> int:
+        """First detector row of the band for the block at global z0
+        (port of ``paris_tpu/pipeline.py:Reconstructor._v_band_lo``)."""
+        n_col = self.det.n_col
+        if self._vp >= n_col:
+            return 0
+        lo, hi = detector_row_band(self.det, self.vol, z0_global,
+                                   self.block_shape[0])
+        if hi - lo > self._vp:
+            raise ValueError(
+                f"v_band_width {self._vp} too narrow for block at "
+                f"z={z0_global} (needs {hi - lo} rows)")
+        return max(0, min(lo, n_col - self._vp))
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -266,21 +289,32 @@ class Reconstructor:
         return tuple(self._put(a) for a in
                      (chunk, np.sin(phi), np.cos(phi), qparams))
 
+    def _filter_band(self, chunk: torch.Tensor, qparams: torch.Tensor,
+                     z0_global: int) -> Tuple[torch.Tensor, int]:
+        """Staged (n, n_col, n_row) frames -> (the band's rows, dequantized,
+        weighted and ramp-filtered, in the kernel's dtype; the band's first
+        detector row).  Dequantization and weighting are elementwise and
+        the filter runs along each detector row, so cutting the band first
+        gives the rows that cutting last would."""
+        v_lo = self._v_band_lo(z0_global)
+        rows = slice(v_lo, v_lo + self._vp)
+        filtered = preprocess_chunk(
+            dequantize_chunk(chunk[:, rows], qparams), self._weights[rows],
+            self._spectrum, self.det.n_row)
+        dtype = torch.bfloat16 if self.accuracy == "fast" else torch.float32
+        return filtered.to(dtype).contiguous(), v_lo
+
     def step_staged(self, volume: torch.Tensor, staged, *,
                     z_offset: int = 0,
                     roi_offset: Tuple[int, int, int] = (0, 0, 0)
                     ) -> torch.Tensor:
         """Accumulate one staged chunk into ``volume`` IN PLACE."""
         chunk, sin, cos, qparams = staged
-        filtered = preprocess_chunk(dequantize_chunk(chunk, qparams),
-                                    self._weights, self._spectrum,
-                                    self.det.n_row)
-        dtype = torch.bfloat16 if self.accuracy == "fast" else torch.float32
-        filtered = filtered.to(dtype).contiguous()
         rx1, ry1, rz1 = roi_offset
+        filtered, v_lo = self._filter_band(chunk, qparams, rz1 + z_offset)
         return backproject_chunk(volume, filtered, sin, cos, self.grid,
                                  z_offset=rz1 + z_offset,
-                                 roi_offset=(rx1, ry1, 0))
+                                 roi_offset=(rx1, ry1, 0), v_lo=v_lo)
 
     def accumulate(self, volume: torch.Tensor, projections, angles_deg, *,
                    z_offset: int = 0,

@@ -231,13 +231,37 @@ def test_cli_roi_reconstruction(scan, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--distributed"], ["--distributed", "--trace-dir", "t"],
-    ["--distributed", "--coordinator", "h:1"],
-    ["--distributed", "--num-processes", "2"],
-    ["--distributed", "--process-id", "0"],
+    ["--coordinator", "h:1"], ["--num-processes", "2"],
+    ["--process-id", "0"],
 ])
 def test_cli_unported_flags_exit_2(scan, tmp_path, capsys, flags):
-    assert _cli(scan, tmp_path, *flags) == 2
-    assert "not yet ported to paris_tpu_torch" in capsys.readouterr().err
+    """The multi-device flags: --coordinator, --num-processes and
+    --process-id without --distributed exit 2 (paris_tpu/cli.py:104-121);
+    --distributed alone runs the job over a group of one and leaves no
+    group behind."""
+    if "--distributed" not in flags:
+        assert _cli(scan, tmp_path, *flags) == 2
+        assert "require --distributed" in capsys.readouterr().err
+        return
+    flags = [str(tmp_path / f) if f == "t" else f for f in flags]
+    assert _cli(scan, tmp_path, "--name", "dv", *flags) == 0
+    assert not torch.distributed.is_initialized()
+    _close(ddbvf.read_volume(str(tmp_path / "dv.ddbvf")), scan["jax"]["full"])
+    if "--trace-dir" in flags:
+        (t,) = _traces(tmp_path / "t")
+        assert any(e.get("ph") == "X" for e in t["traceEvents"])
+
+
+def test_cli_distributed_init_failure_exits_2(scan, tmp_path, capsys):
+    """--distributed with flags that cannot make a group exits 2 with the
+    error; so does the card's backend without a card."""
+    assert _cli(scan, tmp_path, "--distributed", "--coordinator", "h:1") == 2
+    assert "go together" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        assert cli_main(["--geometry", scan["gpath"], "--distributed",
+                         "--backend", "cuda"]) == 2
+        assert "initialization failed" in capsys.readouterr().err
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_trace_dir_writes_a_trace(scan, tmp_path):
@@ -296,6 +320,7 @@ def test_port_never_imports_jax():
     code = ("import sys, paris_tpu_torch, paris_tpu_torch.cli, "
             "paris_tpu_torch.app, paris_tpu_torch.pipeline, "
             "paris_tpu_torch.ops, paris_tpu_torch.utils.profiling, "
+            "paris_tpu_torch.parallel, paris_tpu_torch.parallel.app, "
             "paris_tpu_torch.benchmarks.gather_micro, "
             "paris_tpu_torch.benchmarks.gather_micro2; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")

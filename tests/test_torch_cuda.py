@@ -1,6 +1,7 @@
-"""The CUDA kernels (backprojection, gather micro-benchmarks K3a and
-K3b) against their plain PyTorch versions, on the card.  Every test here
-is marked ``cuda`` and skips without a card.
+"""The CUDA kernels (backprojection, unbanded and banded, gather
+micro-benchmarks K3a and K3b) against their plain PyTorch versions, and
+the world-1 NCCL distributed path against the single-device one, on the
+card.  Every test here is marked ``cuda`` and skips without a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -15,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
+from paris_tpu.geometry import (DetectorGeometry, derive_volume_geometry,
+                                detector_row_band)
 from paris_tpu_torch.benchmarks import gather_micro as gm
 from paris_tpu_torch.benchmarks import gather_micro2 as gm2
 from paris_tpu_torch.ops.backprojection_cuda import (backproject_chunk,
@@ -118,6 +120,66 @@ def test_wrapper_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         backproject_chunk_cuda(vol0, p, s.cpu(), c, grid)
     assert backproject_chunk_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["top_edge", "tall_center"])
+def test_banded_kernel_on_card(cuda_device, name, dtype):
+    """K1c: the kernel on the block's detector-row band equals the kernel
+    on the whole detector bit for bit, and is within 1e-4 max|plain| of
+    the plain version on the same band."""
+    vol0, (p, s, c, grid, z_off, roi) = _on_card(cuda_device, name, dtype)
+    det, vol = grid.det, grid.vol
+    lo, hi = detector_row_band(det, vol, z_off, vol0.shape[0])
+    assert hi - lo < det.n_col
+    band = p[:, lo:hi].contiguous()
+    whole = backproject_chunk_cuda(vol0.clone(), p, s, c, grid, z_off, roi)
+    banded = backproject_chunk_cuda(vol0.clone(), band, s, c, grid, z_off,
+                                    roi, v_lo=lo)
+    plain = backproject_chunk_torch(vol0.clone(), band, s, c, grid, z_off,
+                                    roi, v_lo=lo)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(banded, whole)
+    scale = float(plain.abs().max())
+    assert scale > 0
+    assert float((banded - plain).abs().max()) <= 1e-4 * scale
+    with pytest.raises(ValueError, match="does not lie"):
+        backproject_chunk_cuda(vol0, band, s, c, grid, z_off, roi,
+                               v_lo=det.n_col - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accuracy", ["exact", "fast"])
+def test_world1_nccl_distributed_equals_reconstructor(cuda_device, tmp_path,
+                                                      accuracy):
+    """A world-1 NCCL group: DistributedReconstructor (real all-gathers)
+    equals Reconstructor bit for bit, both through the kernel."""
+    import torch.distributed as dist
+    from paris_tpu_torch.parallel.dist import DistributedReconstructor
+    from paris_tpu_torch.pipeline import Reconstructor
+    det = DetectorGeometry(64, 160, 2.0, 2.0, 0.0, 0.0, 400.0, 400.0, 9.0)
+    vol = derive_volume_geometry(det)
+    rng = np.random.default_rng(4)
+    projs = rng.standard_normal((24, det.n_col, det.n_row)).astype(
+        np.float32)
+    angles = np.arange(24, dtype=np.float32) * 9.0
+    shape = (40, vol.dim_y, vol.dim_x)
+    kw = dict(chunk_size=8, block_shape=shape, backend="cuda",
+              accuracy=accuracy, device=cuda_device, v_band_width=64)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1, device_id=cuda_device)
+    try:
+        before = backproject_chunk_cuda.launches
+        rec = DistributedReconstructor(det, vol, **kw)
+        got = rec.finalize(rec.accumulate(rec.init_block(), projs, angles,
+                                          z_offset=80))
+        assert backproject_chunk_cuda.launches == before + 3
+    finally:
+        dist.destroy_process_group()
+    ref = Reconstructor(det, vol, **kw).run(projs, angles, z_offset=80)
+    assert np.abs(ref).max() > 0
+    np.testing.assert_array_equal(got, ref)
 
 
 # ------------------------------------------- gather micro-benchmarks K3a/K3b
