@@ -6,13 +6,20 @@ Phases (each raises on failure; the script then exits non-zero):
   0. device: needs torch.cuda.is_available(); prints the card's
      nvidia-smi name and power limit, torch and CUDA versions.
   1. build: compiles paris_tpu_torch/csrc/backproject.cu and
-     gather_micro.cu with nvcc (one process each, started together) and
-     prints ptxas's register and spill lines.
+     gather_micro.cu with nvcc and the host I/O library csrc/paris_io.cpp
+     with c++ (one process each, started together), loads all three, and
+     prints ptxas's register and spill lines; the port's native I/O must
+     be available, and the kernel's block shapes must be the planner's.
   2. kernel against its plain PyTorch version on the card, exact (f32)
      and fast (bf16) projections: the cases of tests/test_pallas_kernel.py,
      a (64, 1024, 1024) slab and a (512, 1024, 1024) block of the
      1024-class geometry with C=16.  Gate: max|kernel - plain| <=
-     1e-4 * max|plain|.  Times both with CUDA events.
+     1e-4 * max|plain|.  Times both with CUDA events, and prints the
+     kernel's tile plan, ptxas registers, resident blocks per SM and its
+     share of K1's bound (paris_tpu_torch/benchmarks/k1_compare.py).
+     The kernel's global-memory taps (its plan where no tile ring fits):
+     forced at every case, equal bit for bit to the staged kernel, and
+     through the planner at two geometries no ring fits, same gate.
   3. the slice end to end: a 1024^3 Shepp-Logan scan of 64 projections
      written as HIS files, reconstructed by paris_tpu_torch.cli.main
      (--backend cuda, two 512-slice z-blocks) in fast and exact mode;
@@ -33,8 +40,9 @@ Phases (each raises on failure; the script then exits non-zero):
         the block's band of detector rows (as the job feeds it), in exact
         and fast mode: equal bit for bit to the kernel fed the whole
         detector, and within 1e-4 * max|plain| of the plain version on
-        the same band; the band's rows and the kernel's ms banded and
-        unbanded (CUDA events);
+        the same band; the band's rows, the kernel's ms banded and
+        unbanded (CUDA events), and the banded launch's registers,
+        blocks per SM and share of K1's bound;
      b. phase 3's fast job again through cli.main with --distributed: a
         world-1 NCCL group, real all-gathers, all_reduce and barriers.
         Same RMSE and launch gates; its ddbvf must equal phase 3's fast
@@ -42,9 +50,16 @@ Phases (each raises on failure; the script then exits non-zero):
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launches (K1: the jobs of phases 3 and 5b,
-each counted from 0 just before it), errors and times (K1: ms per launch
-at the (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile of 64
-gathers, the kernel's from a launch of 256 tiles).
+each counted from 0 just before it), errors, times and bounds (K1: ms per
+launch at the fast (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile
+of 64 gathers, the kernel's from a launch of 256 tiles).  bound_ms is the
+larger of the bytes the function moves over 3.35 TB/s and its operations
+over the card's peak rate for their type: K1's over 67 TFLOP/s (f32,
+outside the tensor cores), K3's 32-bit integer adds over 16.75 T/s (64
+int32 lanes an SM against 128 f32, so a quarter of the f32 FMA rate; the
+data sheet gives no int32 rate).
+No single PyTorch call computes any of the three functions, so
+library_ms is null.
 """
 
 from __future__ import annotations
@@ -87,10 +102,12 @@ def phase_device():
 
 def phase_build():
     from paris_tpu_torch import _build
+    from paris_tpu_torch.io import native
+    from paris_tpu_torch.ops import backprojection_cuda as bc
     t0 = time.perf_counter()
     built = _build.build(force=True)
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} "
-          f"libraries, nvcc in parallel")
+          f"libraries, nvcc and c++ in parallel")
     for name, (path, seconds, log) in built.items():
         _build.load_library(name)
         print(f"  {name}: {seconds:.2f} s -> {os.path.relpath(path)}")
@@ -98,12 +115,43 @@ def phase_build():
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 print(f"  ptxas: {line.strip()}")
+    if not native.available():
+        raise RuntimeError("the port's native I/O library did not load")
+    if bc.compiled_shapes() != (bc.SHAPES, bc.RING):
+        raise AssertionError(f"kernel block shapes {bc.compiled_shapes()} "
+                             f"differ from the planner's "
+                             f"{(bc.SHAPES, bc.RING)}")
+    return {name: log for name, (_, _, log) in built.items()}
+
+
+_COPY = {0: "element copies", 1: "cp.async", 2: "taps from global memory"}
+
+
+def _k1_profile(log, p, vol_shape, z0, grid):
+    """The K1 launch's tile plan, ptxas registers (and spills), resident
+    blocks per SM and bound, for projections ``p`` into a block of
+    ``vol_shape`` at global z0; returns (text, bound_ms, bound_by)."""
+    import torch
+    from paris_tpu_torch.benchmarks.k1_compare import (k1_bound_ms,
+                                                       ptxas_registers)
+    from paris_tpu_torch.ops import backprojection_cuda as bc
+    C, vp, n_row = p.shape
+    bf16 = p.dtype == torch.bfloat16
+    plan = bc.launch_plan(grid, vol_shape, p, z0)
+    regs, spill = ptxas_registers(log, bf16, plan)
+    blocks = bc.blocks_per_sm(plan, bf16, p.device)
+    bound, bound_by = k1_bound_ms(*vol_shape, C, vp, n_row, p.element_size())
+    text = (f"block {bc.SHAPES[plan.shape]}, tile {plan.tile_h} x "
+            f"{plan.pitch} ({plan.smem} B of shared memory, "
+            f"{_COPY[plan.copy]}), {regs} registers ({spill} B spilled), "
+            f"{blocks} blocks/SM")
+    return text, bound, bound_by
 
 
 def _kernel_cases():
     """The cases of tests/test_pallas_kernel.py (:40, :53, :66, :80, :254)."""
     import numpy as np
-    from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
+    from paris_tpu_torch.geometry import DetectorGeometry, derive_volume_geometry
     base = DetectorGeometry(96, 80, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 2.0)
     offset = DetectorGeometry(96, 80, 2.0, 2.0, 4.6, -2.0, 500.0, 500.0, 2.0)
     tall = DetectorGeometry(96, 640, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 2.0)
@@ -129,11 +177,27 @@ def _kernel_cases():
             z_off, roi
 
 
+def _no_ring_cases():
+    """(name, det, vol) whose tiles no block shape's ring fits: a volume
+    reaching the source of a large detector, and voxels 12 detector pixels
+    wide (as in tests/test_torch_cuda.py)."""
+    from paris_tpu_torch.geometry import DetectorGeometry, VolumeGeometry
+    return [
+        ("near_source",
+         DetectorGeometry(1024, 1024, 0.25, 0.25, 0.0, 0.0, 60.0, 60.0, 2.0),
+         VolumeGeometry(dim_x=40, dim_y=40, dim_z=8,
+                        l_vx_x=4.0, l_vx_y=4.0, l_vx_z=4.0)),
+        ("coarse_preview",
+         DetectorGeometry(2048, 2048, 0.25, 0.25, 0.0, 0.0, 2048.0, 1024.0,
+                          1.0),
+         VolumeGeometry(dim_x=96, dim_y=96, dim_z=48,
+                        l_vx_x=2.0, l_vx_y=2.0, l_vx_z=2.0)),
+    ]
+
+
 def _config3():
-    from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
-    det = DetectorGeometry(1024, 1024, 0.25, 0.25, 0.0, 0.0, 2048.0, 1024.0,
-                           360.0 / N_PROJ)
-    return det, derive_volume_geometry(det)
+    from paris_tpu_torch.benchmarks.k1_compare import config3
+    return config3()
 
 
 class _Compare:
@@ -142,7 +206,8 @@ class _Compare:
     def __init__(self):
         self.max_abs_err = 0.0
 
-    def check(self, label, vol0, projs, ang, det, vol, z_off, roi, dtype):
+    def check(self, label, vol0, projs, ang, det, vol, z_off, roi, dtype,
+              plan=None):
         import numpy as np
         import torch
         from paris_tpu_torch.ops.backprojection_cuda import \
@@ -159,7 +224,8 @@ class _Compare:
         v0 = torch.as_tensor(vol0, device=dev) if isinstance(
             vol0, np.ndarray) else vol0
         plain = backproject_chunk_torch(v0.clone(), p, s, c, grid, z_off, roi)
-        kern = backproject_chunk_cuda(v0.clone(), p, s, c, grid, z_off, roi)
+        kern = backproject_chunk_cuda(v0.clone(), p, s, c, grid, z_off, roi,
+                                      plan=plan)
         torch.cuda.synchronize()
         err = float((kern - plain).abs().max())
         scale = float(plain.abs().max())
@@ -170,35 +236,50 @@ class _Compare:
               f"rel {err / max(scale, 1e-30):.2e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with plain: {label}")
-        return p, s, c, grid
+        return p, s, c, grid, kern
 
 
 def _time_ms(fn, n, warmup=1):
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    from paris_tpu_torch.benchmarks.k1_compare import time_ms
+    return time_ms(fn, n, warmup)
 
 
-def phase_kernel():
+def phase_kernel(logs):
     import numpy as np
     import torch
-    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
-    from paris_tpu_torch.ops.backprojection_torch import \
-        backproject_chunk_torch
+    from paris_tpu_torch.ops.backprojection_cuda import (
+        COPY_GLOBAL, TilePlan, backproject_chunk_cuda, launch_plan)
+    from paris_tpu_torch.ops.backprojection_torch import (
+        backproject_chunk_torch, make_bp_grid)
     cmp = _Compare()
     print("kernel against plain version (gate max|err| <= "
           f"{GATE_KERNEL:g} * max|plain|):")
     for dtype in (torch.float32, torch.bfloat16):
         for name, det, vol, projs, ang, vol0, z_off, roi in _kernel_cases():
-            cmp.check(name, vol0, projs, ang, det, vol, z_off, roi, dtype)
+            *_, staged = cmp.check(name, vol0, projs, ang, det, vol, z_off,
+                                   roi, dtype)
+            direct = cmp.check(
+                f"{name}, global taps forced", vol0, projs, ang, det, vol,
+                z_off, roi, dtype,
+                plan=TilePlan(0, COPY_GLOBAL, det.n_row, det.n_col, 0))[-1]
+            if not torch.equal(direct, staged):
+                raise AssertionError(f"{name}: global taps differ from the "
+                                     "staged kernel")
+        rng = np.random.default_rng(31)
+        for name, det, vol in _no_ring_cases():
+            projs = rng.standard_normal((4, det.n_col, det.n_row)).astype(
+                np.float32)
+            ang = np.asarray([0.0, 47.0, 133.5, 290.0], np.float32)
+            p = torch.as_tensor(projs, device="cuda").to(dtype)
+            plan = launch_plan(make_bp_grid(det, vol), vol.shape_zyx, p, 0)
+            if plan.copy != COPY_GLOBAL:
+                raise AssertionError(f"{name}: planned {plan}, expected "
+                                     "global taps")
+            cmp.check(f"{name} (no ring fits)", np.zeros(
+                vol.shape_zyx, np.float32), projs, ang, det, vol, 0,
+                (0, 0, 0), dtype)
+    print("  global taps forced at every case equal the staged kernel bit "
+          "for bit")
 
     det, vol = _config3()
     rng = np.random.default_rng(2024)
@@ -212,7 +293,7 @@ def phase_kernel():
         for dz, z0 in ((64, 0), (64, 480), (BLOCK_DZ, BLOCK_DZ)):
             shape = (dz, vol.dim_y, vol.dim_x)
             vol0 = torch.zeros(shape, device=dev)
-            p, s, c, grid = cmp.check(
+            p, s, c, grid, _ = cmp.check(
                 f"1024-class {shape} C={CHUNK} z0={z0}", vol0, projs, ang,
                 det, vol, z0, (0, 0, 0), dtype)
             if z0 == 0:
@@ -223,10 +304,14 @@ def phase_kernel():
             plain_ms = _time_ms(lambda: backproject_chunk_torch(
                 acc, p, s, c, grid, z0), n=3 if dz == 64 else 1)
             upd = dz * vol.dim_y * vol.dim_x * CHUNK
-            timings[(mode, dz)] = (ms, plain_ms)
+            text, bound, bound_by = _k1_profile(logs["backproject"], p,
+                                                shape, z0, grid)
+            timings[(mode, dz)] = (ms, plain_ms, bound, bound_by)
             print(f"  time {mode:<5} {shape} C={CHUNK}: kernel {ms:.3f} ms "
                   f"({upd / ms / 1e6:.1f} Gupd/s), plain {plain_ms:.3f} ms "
-                  f"({upd / plain_ms / 1e6:.1f} Gupd/s)")
+                  f"({upd / plain_ms / 1e6:.1f} Gupd/s); bound "
+                  f"{bound:.3f} ms ({bound_by}), {bound / ms:.1%} of it; "
+                  f"{text}")
             del acc
     return cmp.max_abs_err, timings
 
@@ -242,7 +327,7 @@ def _gate_job(label, out, vol, golden):
     slabs against golden_fdk_stream.  Returns the RMSEs; raises on a
     failed gate."""
     import numpy as np
-    from paris_tpu.io import ddbvf
+    from paris_tpu_torch.io import ddbvf
     if ddbvf.open_meta(out) != (vol.dim_x, vol.dim_y, vol.dim_z):
         raise AssertionError(f"{label}: wrong ddbvf dimensions")
     rmse = {}
@@ -264,11 +349,11 @@ def _gate_job(label, out, vol, golden):
 
 def phase_end_to_end(workdir):
     import numpy as np
-    from paris_tpu.geometry import plan_z_blocks
-    from paris_tpu.golden import golden_fdk_stream
-    from paris_tpu.io.geometry_file import dump_geometry_file
-    from paris_tpu.io.his import write_his
-    from paris_tpu.phantom import cone_beam_project
+    from paris_tpu_torch.geometry import plan_z_blocks
+    from paris_tpu_torch.golden import golden_fdk_stream
+    from paris_tpu_torch.io.geometry_file import dump_geometry_file
+    from paris_tpu_torch.io.his import write_his
+    from paris_tpu_torch.phantom import cone_beam_project
     from paris_tpu_torch import cli
     from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
 
@@ -454,7 +539,7 @@ def phase_micro():
     return launches, max_err, tile_ms
 
 
-def phase_band():
+def phase_band(logs):
     """5a: K1c at the config-3 blocks; returns max|banded - plain|."""
     import numpy as np
     import torch
@@ -462,7 +547,7 @@ def phase_band():
     from paris_tpu_torch.ops.backprojection_torch import (
         backproject_chunk_torch, make_bp_grid)
     from paris_tpu_torch.pipeline import Reconstructor
-    from paris_tpu.geometry import detector_row_band
+    from paris_tpu_torch.geometry import detector_row_band
     det, vol = _config3()
     z0s = (0, BLOCK_DZ)
     # the job's band: the widest over the blocks, placed per block by the
@@ -509,10 +594,14 @@ def phase_band():
                 acc, band, s, c, grid, z0, v_lo=v_lo), n=5, warmup=1)
             ms_whole = _time_ms(lambda: backproject_chunk_cuda(
                 acc, p, s, c, grid, z0), n=5, warmup=1)
+            text, bound, bound_by = _k1_profile(logs["backproject"], band,
+                                                shape, z0, grid)
             print(f"  {mode:<5} block z0={z0:<4} rows {v_lo}..{v_lo + vp - 1}"
                   f": banded == unbanded {same}, max|err| {err:.3e} "
-                  f"max|plain| {scale:.3e}; kernel {ms_band:.3f} ms banded, "
-                  f"{ms_whole:.3f} ms unbanded  {'ok' if ok else 'FAIL'}")
+                  f"max|plain| {scale:.3e}; kernel {ms_band:.3f} ms banded "
+                  f"({bound / ms_band:.1%} of the {bound:.3f} ms bound, "
+                  f"{bound_by}), {ms_whole:.3f} ms unbanded; {text}  "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1c check failed at {mode} z0={z0}")
             del acc, banded, zero
@@ -552,6 +641,19 @@ def phase_distributed(workdir, job):
     return launched
 
 
+def _gather_tile_bound_ms(table_bytes):
+    """Least ms per (64, 128) tile of a 256-tile gather micro-benchmark
+    launch: its output tile written once (32 KiB) and its share of the
+    table and index reads, over 3.35 TB/s, against one 32-bit integer add
+    per element per rep (64 x 8192) over the int32 rate."""
+    from paris_tpu_torch.benchmarks.k1_compare import (HBM_BYTES_PER_S,
+                                                       PEAK_INT32_OPS)
+    nbytes = 64 * 128 * 4 + (table_bytes + 64 * 128 * 4) / 256
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 64 * 64 * 128 / PEAK_INT32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _same_bytes(a, b, block=64 << 20):
     if os.path.getsize(a) != os.path.getsize(b):
         return False
@@ -568,14 +670,14 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
     import torch
-    phase_build()
-    max_abs_err, timings = phase_kernel()
+    logs = phase_build()
+    max_abs_err, timings = phase_kernel(logs)
     with tempfile.TemporaryDirectory(prefix="paris_smoke_") as workdir:
         launches, _, job = phase_end_to_end(workdir)
         micro_launches, micro_err, tile_ms = phase_micro()
-        max_abs_err = max(max_abs_err, phase_band())
+        max_abs_err = max(max_abs_err, phase_band(logs))
         launches += phase_distributed(workdir, job)
-    ms, plain_ms = timings[("fast", 64)]
+    ms, plain_ms, bound, bound_by = timings[("fast", 64)]
     kernels = [{
         "name": "bp_kernel (fast: bf16 projections, f32 arithmetic)",
         "route": "cuda",
@@ -585,12 +687,16 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
     }]
-    for kid, name, replaces in (
+    for kid, name, replaces, table_bytes in (
             ("K3a", "gather_micro_kernel (K3a; ms per tile, lane mode)",
-             "benchmarks/gather_micro.py:86"),
+             "benchmarks/gather_micro.py:86", 8 * 128 * 128 * 4),
             ("K3b", "gather_micro2_kernel (K3b; ms per tile, dyn_take2 mode)",
-             "benchmarks/gather_micro2.py:82")):
+             "benchmarks/gather_micro2.py:82", 8 * 16 * 64 * 128 * 4)):
+        bound, bound_by = _gather_tile_bound_ms(table_bytes)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -600,6 +706,9 @@ def main() -> int:
             "max_abs_err": micro_err[kid],
             "ms": tile_ms[kid][0],
             "plain_ms": tile_ms[kid][1],
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,16 +3,18 @@ PyTorch, with its backprojection kernel, and the kernels of its gather
 micro-benchmarks, written by hand in CUDA C++ for NVIDIA Hopper (sm_90a).
 
 The JAX package stays the reference.  This package imports ``torch`` and
-never ``jax``: the geometry, golden oracle, phantom projector and I/O
-modules of ``paris_tpu`` are JAX-free and are used as they are.
+never ``jax``, and nothing of ``paris_tpu``: it keeps its own copies of
+the JAX package's JAX-free modules (geometry, exceptions, the golden
+oracle, the NumPy phantom projector, the I/O modules with their native
+library, logging), under the same names.
 """
 
-from paris_tpu.exceptions import (
+from .exceptions import (
     ParisError,
     StageConstructionError,
     StageRuntimeError,
 )
-from paris_tpu.geometry import (
+from .geometry import (
     DetectorGeometry,
     VolumeGeometry,
     RegionOfInterest,

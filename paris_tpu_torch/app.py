@@ -29,17 +29,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from paris_tpu.exceptions import (
+from .exceptions import (
     ParisError, StageConstructionError, StageRuntimeError,
 )
-from paris_tpu.geometry import (
+from .geometry import (
     DetectorGeometry, RegionOfInterest, SubvolumeInfo, VolumeGeometry,
     apply_roi, derive_volume_geometry, detector_row_band, plan_z_blocks,
 )
-from paris_tpu.io.sink import VolumeSink
-from paris_tpu.io.source import ProjectionSource
-from paris_tpu.utils.logging import StageTimers, fmt_duration
-
+from .io.sink import VolumeSink
+from .io.source import ProjectionSource
+from .utils.logging import StageTimers, fmt_duration
 from .pipeline import Reconstructor, resolve_backend, stage_stream
 from .utils.profiling import ThroughputMeter, trace
 

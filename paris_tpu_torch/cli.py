@@ -1,10 +1,12 @@
 """Command-line interface of the PyTorch port:
 ``python -m paris_tpu_torch.cli`` (console script ``paris-tpu-torch``).
 
-Reuses ``paris_tpu.cli.build_parser`` so the flags match the JAX CLI and
-the reference's; ``--backend`` takes auto/cuda/torch, and ``--trace-dir``
-writes one torch.profiler Chrome trace per z-block.  ``--distributed``
-runs the job over a ``torch.distributed`` group, one process per card:
+The parser has the flags, defaults and choices of the JAX CLI
+(``paris_tpu/cli.py:build_parser``) and the reference's
+(src/program_options.cpp:37-153), apart from ``--backend``, which takes
+auto/cuda/torch; ``--trace-dir`` writes one torch.profiler Chrome trace
+per z-block.  ``--distributed`` runs the job over a ``torch.distributed``
+group, one process per card:
 
     torchrun --nproc-per-node N -m paris_tpu_torch.cli --distributed ...
 
@@ -21,48 +23,75 @@ import logging
 import sys
 from typing import List, Optional
 
-from paris_tpu.cli import build_parser as _reference_parser
-from paris_tpu.exceptions import ParisError
-from paris_tpu.geometry import RegionOfInterest, apply_roi, derive_volume_geometry
-from paris_tpu.io.geometry_file import geometry_format_help, load_geometry_file
-from paris_tpu.utils.logging import setup_logging
-
 from . import __version__
+from .exceptions import ParisError
+from .geometry import RegionOfInterest, apply_roi, derive_volume_geometry
+from .io.geometry_file import geometry_format_help, load_geometry_file
+from .utils.logging import setup_logging
 
 logger = logging.getLogger("paris_tpu_torch.cli")
 
 BANNER = (f"paris_tpu_torch {__version__} — cone-beam CT (FDK) "
           f"reconstruction in PyTorch with a CUDA backprojection kernel")
 
+
 def build_parser() -> argparse.ArgumentParser:
-    p = _reference_parser()
-    p.prog = "paris-tpu-torch"
-    p.description = BANNER
-    for action in p._actions:
-        if action.dest == "backend":
-            action.choices = ["auto", "cuda", "torch"]
-            action.default = "auto"
-            action.help = ("backprojection backend: cuda (the hand-written "
-                           "kernel), torch (plain PyTorch on the CPU), auto "
-                           "(cuda when a card is present)")
-        elif action.dest == "accuracy":
-            action.help = ("fast (default): u16 staging and bf16 "
-                           "projections into the kernel, float32 "
-                           "arithmetic; exact: float32 throughout")
-        elif action.dest == "hbm_budget_gb":
-            action.help = "device-memory budget per z-block (GB)"
-        elif action.dest == "block_dz":
-            action.help = "force the z-block extent (slices)"
-        elif action.dest == "trace_dir":
-            action.help = ("write one torch.profiler Chrome-trace JSON per "
-                           "z-block's reconstruct stage into this directory")
-        elif action.dest == "distributed":
-            action.help = ("run over a torch.distributed group, one process "
-                           "per card (NCCL; gloo for --backend torch): from "
-                           "--coordinator/--num-processes/--process-id, else "
-                           "torchrun's environment, else a group of one")
-        elif action.dest == "version":
-            action.version = __version__
+    p = argparse.ArgumentParser(
+        prog="paris-tpu-torch", description=BANNER, add_help=True)
+    p.add_argument("--geometry-format", action="store_true",
+                   help="display geometry file format and exit")
+    p.add_argument("--geometry", help="path to geometry file")
+    p.add_argument("--input", help="path to projections (optional)")
+    p.add_argument("--output", help="output directory for the volume (optional)")
+    p.add_argument("--name", default="vol",
+                   help="name of the reconstructed volume (optional)")
+    p.add_argument("--angles", help="path to projection angles (optional)")
+    p.add_argument("--quality", type=int, default=1,
+                   help="quality setting: keep every q-th projection (optional)")
+    p.add_argument("--roi", action="store_true",
+                   help="region of interest switch (optional)")
+    for c in ("x1", "x2", "y1", "y2", "z1", "z2"):
+        p.add_argument(f"--roi-{c}", type=int, default=None,
+                       help=f"ROI coordinate {c}")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "cuda", "torch"],
+                   help="backprojection backend: cuda (the hand-written "
+                        "kernel), torch (plain PyTorch on the CPU), auto "
+                        "(cuda when a card is present)")
+    p.add_argument("--chunk-size", type=int, default=16,
+                   help="projections accumulated per device pass")
+    p.add_argument("--hbm-budget-gb", type=float, default=None,
+                   help="device-memory budget per z-block (GB)")
+    p.add_argument("--block-dz", type=int, default=None,
+                   help="force the z-block extent (slices)")
+    p.add_argument("--max-blocks", type=int, default=None,
+                   help="compute at most N new blocks then exit "
+                        "(re-run with --resume to continue; bounds "
+                        "per-process resource growth on long jobs)")
+    p.add_argument("--accuracy", default="fast", choices=["exact", "fast"],
+                   help="fast (default): u16 staging and bf16 projections "
+                        "into the kernel, float32 arithmetic; exact: "
+                        "float32 throughout")
+    p.add_argument("--trace-dir", default=None,
+                   help="write one torch.profiler Chrome-trace JSON per "
+                        "z-block's reconstruct stage into this directory")
+    p.add_argument("--resume", action="store_true",
+                   help="resume: skip blocks recorded complete in the manifest")
+    p.add_argument("--distributed", action="store_true",
+                   help="run over a torch.distributed group, one process "
+                        "per card (NCCL; gloo for --backend torch): from "
+                        "--coordinator/--num-processes/--process-id, else "
+                        "torchrun's environment, else a group of one")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rendezvous address of the torch.distributed group "
+                        "(with --distributed; every process passes the "
+                        "same address)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count of the distributed run")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's id in [0, --num-processes)")
+    p.add_argument("--verbose", action="store_true", help="debug logging")
+    p.add_argument("--version", action="version", version=__version__)
     return p
 
 

@@ -38,7 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from paris_tpu.geometry import DetectorGeometry, VolumeGeometry
+from ..geometry import DetectorGeometry, VolumeGeometry
 
 __all__ = ["BpGrid", "make_bp_grid", "kernel_constants",
            "backproject_chunk_torch"]

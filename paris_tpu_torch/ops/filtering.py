@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paris_tpu.geometry import filter_size_for
+from ..geometry import filter_size_for
 
 __all__ = ["ramp_kernel_real", "ramp_filter_spectrum", "filter_projections"]
 

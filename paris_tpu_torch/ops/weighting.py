@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from paris_tpu.geometry import DetectorGeometry, weighting_constants
+from ..geometry import DetectorGeometry, weighting_constants
 
 __all__ = ["weight_map", "apply_weights"]
 

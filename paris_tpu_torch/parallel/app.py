@@ -23,19 +23,16 @@ from typing import Optional
 
 import torch
 
-from paris_tpu.exceptions import (
-    ParisError, StageConstructionError, StageRuntimeError,
-)
-from paris_tpu.geometry import apply_roi, derive_volume_geometry, plan_z_blocks
-from paris_tpu.io.sink import VolumeSink
-from paris_tpu.utils.logging import StageTimers, fmt_duration
-
 from ..app import (
     ReconstructionJob, _after, _auto_hbm_budget, _finish_writer,
     _free_hbm_bytes, _log_block_done, _overlap_free_est, _plan_write_overlap,
     _ProjectionCache, _reconstruct_block, _source_chunks, _widest_band,
 )
+from ..exceptions import ParisError, StageConstructionError, StageRuntimeError
+from ..geometry import apply_roi, derive_volume_geometry, plan_z_blocks
+from ..io.sink import VolumeSink
 from ..pipeline import resolve_backend
+from ..utils.logging import StageTimers, fmt_duration
 from . import multihost
 from .dist import DistributedReconstructor, owned_slots
 from .mesh import world_and_rank

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from paris_tpu.geometry import DetectorGeometry, VolumeGeometry
+from ..geometry import DetectorGeometry, VolumeGeometry
 
 from ..ops.backprojection_cuda import backproject_chunk
 from ..pipeline import (Reconstructor, _STAGE_WORKERS, identity_qparams,

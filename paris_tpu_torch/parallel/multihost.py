@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from paris_tpu.io import ddbvf
+from ..io import ddbvf
 
 from ..pipeline import resolve_backend
 from .mesh import group_backend, rank_device, world_and_rank

@@ -22,8 +22,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from paris_tpu.geometry import (DetectorGeometry, VolumeGeometry,
-                                detector_row_band)
+from .geometry import DetectorGeometry, VolumeGeometry, detector_row_band
 from .ops.weighting import weight_map
 from .ops.filtering import ramp_filter_spectrum, filter_projections
 from .ops.backprojection_torch import make_bp_grid
@@ -63,7 +62,7 @@ def quantize_chunk_u16(chunk: np.ndarray, pad_to: int, *,
     n = chunk.shape[0]
     q = np.empty((pad_to,) + chunk.shape[1:], np.uint16)
     qparams = np.zeros((pad_to, 2), np.float32)
-    from paris_tpu.io import native
+    from .io import native
     if native.quantize_u16_available() and chunk.flags.c_contiguous:
         native.quantize_u16(chunk, q, qparams, n_threads=max(
             1, (os.cpu_count() or 1) // max(1, concurrency)))

@@ -5,8 +5,8 @@
     (open it in Perfetto or chrome://tracing);
   * ``annotate`` names a host region inside those traces, and in NVTX
     when a card is present;
-  * ``ThroughputMeter`` (projections/s, voxel updates/s) is the JAX-free
-    one of ``paris_tpu.utils.profiling``.
+  * ``ThroughputMeter`` reports projections/s and voxel updates/s (the
+    BASELINE.json north-star metrics) during a run.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ from typing import Optional
 
 import torch
 
-from paris_tpu.utils.profiling import ThroughputMeter
 
 logger = logging.getLogger("paris_tpu_torch.profiling")
 
@@ -66,3 +65,39 @@ def annotate(name: str):
         if torch.cuda.is_available():
             stack.enter_context(torch.cuda.nvtx.range(name))
         yield
+
+
+class ThroughputMeter:
+    """Accumulates voxel-update / projection counts; logs rates.
+
+    ``report_every`` controls the cadence of progress logs (the
+    reference logged every 10th projection; we log on a work-volume
+    cadence so huge runs aren't log-bound).
+    """
+
+    def __init__(self, voxels_per_block: int, report_every_s: float = 10.0):
+        self.voxels = voxels_per_block
+        self.t0 = time.perf_counter()
+        self._last = self.t0
+        self.report_every_s = report_every_s
+        self.projections = 0
+
+    def add(self, n_projections: int) -> None:
+        self.projections += n_projections
+        now = time.perf_counter()
+        if now - self._last >= self.report_every_s:
+            self._last = now
+            self.log()
+
+    @property
+    def voxel_updates(self) -> int:
+        return self.projections * self.voxels
+
+    def rates(self):
+        dt = max(time.perf_counter() - self.t0, 1e-9)
+        return self.projections / dt, self.voxel_updates / dt / 1e9
+
+    def log(self) -> None:
+        pps, gups = self.rates()
+        logger.info("progress: %d projections, %.1f proj/s, %.1f Gupd/s",
+                    self.projections, pps, gups)

@@ -1,6 +1,7 @@
 """paris_tpu_torch run_job / CLI vs the JAX CLI on the same HIS files
 (mirrors tests/test_app_cli.py:41-165; CPU torch, CPU JAX)."""
 
+import dataclasses
 import json
 import logging
 import os
@@ -11,15 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from paris_tpu import StageConstructionError
 from paris_tpu.cli import main as jax_cli_main
 from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
 from paris_tpu.io import ddbvf
 from paris_tpu.io.geometry_file import dump_geometry_file
 from paris_tpu.io.his import write_his
 from paris_tpu.phantom import cone_beam_project
+from paris_tpu_torch import geometry as port_geometry
 from paris_tpu_torch.app import ReconstructionJob, run_job
 from paris_tpu_torch.cli import main as cli_main
+from paris_tpu_torch.exceptions import ParisError, StageConstructionError
 from paris_tpu_torch.utils.profiling import annotate, trace
 
 
@@ -60,7 +62,9 @@ def scan(tmp_path_factory):
     assert jax_cli_main(common + ["--name", "q2", "--quality", "2"]) == 0
     jax_out = {n: ddbvf.read_volume(str(root / "jax" / f"{n}.ddbvf"))
                for n in ("full", "roi", "q2")}
-    return dict(det=det, vol=vol, pdir=str(pdir), gpath=str(gpath),
+    # the port's job takes the port's own geometry class
+    port_det = port_geometry.DetectorGeometry(**dataclasses.asdict(det))
+    return dict(det=port_det, vol=vol, pdir=str(pdir), gpath=str(gpath),
                 jax=jax_out)
 
 
@@ -182,8 +186,8 @@ def test_trace_without_dir_is_a_no_op(tmp_path):
 
 
 def test_two_tier_exceptions(tmp_path):
-    from paris_tpu import ParisError
-    det = DetectorGeometry(32, 32, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 3.0)
+    """The port raises its own exception classes."""
+    det = port_geometry.DetectorGeometry(32, 32, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 3.0)
     with pytest.raises(StageConstructionError):
         run_job(ReconstructionJob(det=det, input_path=str(tmp_path),
                                   output_path="/proc/nope/denied",

@@ -5,16 +5,19 @@ the CUDA wrapper's dispatch on the CPU.  The cases live in
 tests/test_torch_cuda.py, which holds the kernel against the plain
 version on the card."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from paris_tpu.geometry import DetectorGeometry, VolumeGeometry
+from paris_tpu import geometry as jax_geometry
 from paris_tpu.ops import backprojection_pallas as bpp
 from paris_tpu.ops.backprojection_xla import backproject_chunk_xla
 from paris_tpu.ops.backprojection_xla import make_bp_grid as jax_grid
+from paris_tpu_torch.geometry import DetectorGeometry, VolumeGeometry
 from paris_tpu_torch.ops.backprojection_cuda import (backproject_chunk,
                                                      backproject_chunk_cuda)
 from paris_tpu_torch.ops.backprojection_torch import (backproject_chunk_torch,
@@ -49,10 +52,16 @@ def _port(det, vol, projs, ang, vol0, z_off, roi):
     return out.numpy()
 
 
+def _jax_geometry(det, vol):
+    """The port's geometry objects as the JAX package's classes."""
+    return (jax_geometry.DetectorGeometry(**dataclasses.asdict(det)),
+            jax_geometry.VolumeGeometry(**dataclasses.asdict(vol)))
+
+
 def _jax(ref, det, vol, projs, ang, vol0, z_off, roi, **kw):
     sin, cos = _sincos(ang)
     args = (jnp.asarray(vol0), jnp.asarray(projs), jnp.asarray(sin),
-            jnp.asarray(cos), jax_grid(det, vol))
+            jnp.asarray(cos), jax_grid(*_jax_geometry(det, vol)))
     if ref == "xla":
         out = backproject_chunk_xla(*args, z_offset=z_off, roi_offset=roi)
     else:
@@ -159,7 +168,8 @@ def test_accumulate_from_jax_state():
     offs = jnp.asarray([roi[0], roi[1], roi[2] + z_off, 0], jnp.int32)
     out_k = bpp.backproject_chunk_pallas_yxz(
         vk, bpp.pad_projections_t(jnp.asarray(projs)), jnp.asarray(sin),
-        jnp.asarray(cos), jax_grid(det, vol), offs, interpret=True)
+        jnp.asarray(cos), jax_grid(*_jax_geometry(det, vol)), offs,
+        interpret=True)
     acc = from_jax_state(np.asarray(vk), shape, "cpu")
     backproject_chunk_torch(acc, torch.from_numpy(projs),
                             torch.from_numpy(sin), torch.from_numpy(cos),

@@ -5,6 +5,7 @@ against the unbanded port and the JAX package (CPU torch, CPU JAX).
 The 160-row detector and its 4-block split are those of
 tests/test_distributed.py:128-131."""
 
+import dataclasses
 import logging
 import types
 
@@ -12,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from paris_tpu import geometry as jax_geometry
 from paris_tpu import pipeline as jax_pipeline
-from paris_tpu.geometry import (DetectorGeometry, derive_volume_geometry,
-                                detector_row_band, plan_z_blocks)
 from paris_tpu.io import ddbvf
 from paris_tpu.io.his import write_his
+from paris_tpu_torch.geometry import (DetectorGeometry,
+                                      derive_volume_geometry,
+                                      detector_row_band, plan_z_blocks)
 from paris_tpu_torch.app import (ReconstructionJob, _overlap_block_dz,
                                  _plan_write_overlap, run_job)
 from paris_tpu_torch.ops.backprojection_torch import (backproject_chunk_torch,
@@ -85,8 +88,10 @@ def test_reconstructor_band_matches_jax(tall):
                         block_shape=block, v_band_width=128)
     assert rec._vp == 128 and rec._v_band_lo(z0) > 0
     out = rec.run(projs, angles, z_offset=z0)
-    full = jax_pipeline.reconstruct(det, vol, projs, angles, chunk_size=8,
-                                    backend="xla")
+    full = jax_pipeline.reconstruct(
+        jax_geometry.DetectorGeometry(**dataclasses.asdict(det)),
+        jax_geometry.VolumeGeometry(**dataclasses.asdict(vol)), projs, angles,
+        chunk_size=8, backend="xla")
     np.testing.assert_allclose(out, full[z0:z0 + dz], rtol=1e-4, atol=1e-4)
     unbanded = Reconstructor(det, vol, chunk_size=8, backend="torch",
                              block_shape=block).run(projs, angles,

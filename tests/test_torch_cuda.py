@@ -1,9 +1,11 @@
-"""The CUDA kernels (backprojection, unbanded and banded, gather
-micro-benchmarks K3a and K3b) against their plain PyTorch versions, and
+"""The CUDA kernels (backprojection: unbanded, banded, its other
+staging paths and block shapes, and its taps from global memory where no
+tile ring fits; gather micro-benchmarks K3a and K3b) against their plain PyTorch versions, and
 the world-1 NCCL distributed path against the single-device one, on the
 card.  Every test here is marked ``cuda`` and skips without a card.
 
-This file imports no JAX, so it also runs where JAX is not installed:
+This file imports no JAX and nothing of the JAX package, so it also runs
+where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -16,12 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from paris_tpu.geometry import (DetectorGeometry, derive_volume_geometry,
-                                detector_row_band)
+from paris_tpu_torch.geometry import (DetectorGeometry, VolumeGeometry,
+                                      derive_volume_geometry,
+                                      detector_row_band)
 from paris_tpu_torch.benchmarks import gather_micro as gm
 from paris_tpu_torch.benchmarks import gather_micro2 as gm2
-from paris_tpu_torch.ops.backprojection_cuda import (backproject_chunk,
-                                                     backproject_chunk_cuda)
+from paris_tpu_torch.ops.backprojection_cuda import (
+    COPY_ELEMENT, COPY_GLOBAL, RING, SHAPES, TilePlan, backproject_chunk,
+    backproject_chunk_cuda, blocks_per_sm, compiled_shapes, launch_plan)
 from paris_tpu_torch.ops.backprojection_torch import (backproject_chunk_torch,
                                                       make_bp_grid)
 
@@ -98,6 +102,112 @@ def test_kernel_matches_plain_on_card(cuda_device, name, dtype):
     assert backproject_chunk_cuda.launches == before + 1
     scale = float(plain.abs().max())
     assert float((kern - plain).abs().max()) <= 1e-4 * scale
+
+
+# (det, vol) whose launches take the other paths of the kernel: rows whose
+# bytes are not 16-B aligned (element-wise staging, no cp.async), and
+# voxels 6 pixels wide (the smaller block shape in float32)
+PATHS = {
+    "unaligned_rows": (DetectorGeometry(70, 48, 2.0, 2.0, 1.5, 0.5, 500.0,
+                                        500.0, 2.0), None),
+    "coarse_voxels": (DetectorGeometry(1024, 1024, 1.0, 1.0, 0.0, 0.0,
+                                       2000.0, 2000.0, 1.0),
+                      VolumeGeometry(dim_x=48, dim_y=48, dim_z=48,
+                                     l_vx_x=3.0, l_vx_y=3.0, l_vx_z=3.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_kernel_paths_match_plain_on_card(cuda_device, path, dtype):
+    det, vol = PATHS[path]
+    vol = vol or derive_volume_geometry(det)
+    rng = np.random.default_rng(17)
+    projs = torch.from_numpy(rng.standard_normal(
+        (5, det.n_col, det.n_row)).astype(np.float32)).to(cuda_device, dtype)
+    sin, cos = (torch.from_numpy(a).to(cuda_device)
+                for a in sincos(np.asarray([3.0, 81.0, 150.5, 222.0, 300.0],
+                                           np.float32)))
+    grid = make_bp_grid(det, vol)
+    shape = (vol.dim_z - 3, vol.dim_y, vol.dim_x)     # a ragged last z group
+    plan = launch_plan(grid, shape, projs, 2)
+    if path == "unaligned_rows":
+        assert plan.copy == COPY_ELEMENT
+    else:
+        assert plan.shape == (1 if dtype == torch.float32 else 0)
+    assert blocks_per_sm(plan, dtype == torch.bfloat16, cuda_device) >= 1
+    zero = torch.zeros(shape, device=cuda_device)
+    plain = backproject_chunk_torch(zero.clone(), projs, sin, cos, grid, 2)
+    kern = backproject_chunk_cuda(zero.clone(), projs, sin, cos, grid, 2)
+    torch.cuda.synchronize(cuda_device)
+    scale = float(plain.abs().max())
+    assert scale > 0
+    assert float((kern - plain).abs().max()) <= 1e-4 * scale
+
+
+# (det, vol) whose tiles no block shape's ring fits (as in
+# tests/test_torch_tile_plan.py): a volume reaching the source of a large
+# detector, and voxels 12 detector pixels wide
+NO_RING = {
+    "near_source": (DetectorGeometry(1024, 1024, 0.25, 0.25, 0.0, 0.0, 60.0,
+                                     60.0, 2.0),
+                    VolumeGeometry(dim_x=40, dim_y=40, dim_z=8,
+                                   l_vx_x=4.0, l_vx_y=4.0, l_vx_z=4.0)),
+    "coarse_preview": (DetectorGeometry(2048, 2048, 0.25, 0.25, 0.0, 0.0,
+                                        2048.0, 1024.0, 1.0),
+                       VolumeGeometry(dim_x=96, dim_y=96, dim_z=48,
+                                      l_vx_x=2.0, l_vx_y=2.0, l_vx_z=2.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(NO_RING))
+def test_no_ring_fits_takes_global_taps_on_card(cuda_device, case, dtype):
+    """No block shape's ring fits: the wrapper launches the kernel's
+    global-memory taps (not the plain version), within 1e-4 max|plain| of
+    the plain version."""
+    det, vol = NO_RING[case]
+    rng = np.random.default_rng(31)
+    projs = torch.from_numpy(rng.standard_normal(
+        (4, det.n_col, det.n_row)).astype(np.float32)).to(cuda_device, dtype)
+    sin, cos = (torch.from_numpy(a).to(cuda_device)
+                for a in sincos(np.asarray([0.0, 47.0, 133.5, 290.0],
+                                           np.float32)))
+    grid = make_bp_grid(det, vol)
+    plan = launch_plan(grid, vol.shape_zyx, projs, 0)
+    assert plan.copy == COPY_GLOBAL and plan.smem == 0
+    assert blocks_per_sm(plan, dtype == torch.bfloat16, cuda_device) >= 1
+    zero = torch.zeros(vol.shape_zyx, device=cuda_device)
+    plain = backproject_chunk_torch(zero.clone(), projs, sin, cos, grid)
+    before = backproject_chunk_cuda.launches
+    kern = backproject_chunk(zero.clone(), projs, sin, cos, grid)
+    torch.cuda.synchronize(cuda_device)
+    assert backproject_chunk_cuda.launches == before + 1
+    scale = float(plain.abs().max())
+    assert scale > 0
+    assert float((kern - plain).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", CASES)
+def test_global_taps_equal_staged_taps_on_card(cuda_device, name, dtype):
+    """The global-memory instantiation, forced where a ring fits, equals
+    the staged kernel bit for bit: the same taps, the same arithmetic."""
+    vol0, args = _on_card(cuda_device, name, dtype)
+    p, grid = args[0], args[3]
+    staged = backproject_chunk_cuda(vol0.clone(), *args)
+    plan = TilePlan(0, COPY_GLOBAL, grid.det.n_row, p.shape[1], 0)
+    direct = backproject_chunk_cuda(vol0.clone(), *args, plan=plan)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(direct, staged)
+
+
+@pytest.mark.cuda
+def test_library_shapes_match_the_planner(cuda_device):
+    assert compiled_shapes() == (SHAPES, RING)
 
 
 @pytest.mark.cuda

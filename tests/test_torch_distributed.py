@@ -7,6 +7,7 @@ In-process tests share one world-1 gloo group made by a module fixture;
 the 2-rank tests spawn the CLI twice, as a user launches it, with a
 rendezvous on a free local port (tests/test_multihost_2proc.py)."""
 
+import dataclasses
 import json
 import logging
 import os
@@ -21,14 +22,15 @@ import torch
 import torch.distributed as dist
 
 from paris_tpu.app import ReconstructionJob as JaxJob, run_job as jax_run_job
-from paris_tpu.geometry import (DetectorGeometry, RegionOfInterest,
-                                apply_roi, derive_volume_geometry)
+from paris_tpu import geometry as jax_geometry
 from paris_tpu.io import ddbvf
 from paris_tpu.io.geometry_file import dump_geometry_file
 from paris_tpu.io.his import write_his
 from paris_tpu.parallel import DistributedReconstructor as JaxDistributed
 from paris_tpu.parallel import make_z_mesh
 from paris_tpu_torch.app import ReconstructionJob, run_job
+from paris_tpu_torch.geometry import (DetectorGeometry, RegionOfInterest,
+                                      apply_roi, derive_volume_geometry)
 from paris_tpu_torch.parallel import dist as dist_mod
 from paris_tpu_torch.parallel import multihost
 from paris_tpu_torch.parallel.dist import DistributedReconstructor, owned_slots
@@ -76,6 +78,12 @@ def setup():
     return SETUP_DET, vol, projs, angles
 
 
+def _jax_geo(*objs):
+    """The port's geometry objects as the JAX package's classes."""
+    return tuple(getattr(jax_geometry, type(o).__name__)(
+        **dataclasses.asdict(o)) for o in objs)
+
+
 def _close(got, ref, tol=1e-4):
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
@@ -108,7 +116,7 @@ def test_world1_matches_jax_and_single_device(group, setup, case):
                            backend="torch", accuracy=accuracy)
     np.testing.assert_array_equal(out, single.run(projs, angles, **kw))
     if case != "fast":
-        jd = JaxDistributed(det, vol, mesh=mesh, chunk_size=8, block_dz=dz,
+        jd = JaxDistributed(*_jax_geo(det, vol), mesh=mesh, chunk_size=8, block_dz=dz,
                             backend="xla")
         ref = np.asarray(jd.accumulate(jd.init_block(), projs, angles,
                                        **jax_kw))
@@ -236,7 +244,7 @@ def his_scan(tmp_path_factory):
         write_his(str(pdir / f"b{i:04d}.his"), frames[i:i + 8],
                   number_dtype=np.uint16)
     gpath = root / "scan.geo"
-    dump_geometry_file(HIS_DET, str(gpath))
+    dump_geometry_file(_jax_geo(HIS_DET)[0], str(gpath))
     return str(pdir), str(gpath)
 
 
@@ -286,7 +294,7 @@ def test_two_rank_cli_matches_single_process(his_scan, tmp_path):
     manifest = json.load(open(tmp_path / "mh" / "v.ddbvf.manifest.json"))
     assert manifest["completed_blocks"] == [0, 1]
     ref = ddbvf.read_volume(jax_run_job(JaxJob(
-        det=HIS_DET, input_path=his_scan[0],
+        det=_jax_geo(HIS_DET)[0], input_path=his_scan[0],
         output_path=str(tmp_path / "jax"), prefix="v", chunk_size=8,
         backend="xla", accuracy="exact", block_dz=32)))
     _close(got, ref)

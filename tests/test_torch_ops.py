@@ -1,6 +1,7 @@
 """paris_tpu_torch preprocessing ops vs the JAX package and the NumPy
 golden oracle (CPU torch, CPU JAX)."""
 
+import dataclasses
 import threading
 
 import jax.numpy as jnp
@@ -8,11 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from paris_tpu.geometry import DetectorGeometry
+from paris_tpu import geometry as jax_geometry
 from paris_tpu.golden import golden_filter, golden_weight
 from paris_tpu.ops import filtering as jax_filtering
 from paris_tpu.ops import weighting as jax_weighting
 from paris_tpu import pipeline as jax_pipeline
+from paris_tpu_torch.geometry import DetectorGeometry
 from paris_tpu_torch.ops.filtering import (filter_projections,
                                            ramp_filter_spectrum,
                                            ramp_kernel_real)
@@ -35,6 +37,12 @@ def _one_torch_thread():
 
 CPU = torch.device("cpu")
 
+
+def _jax_det(det):
+    """The port's detector geometry as the JAX package's class."""
+    return jax_geometry.DetectorGeometry(**dataclasses.asdict(det))
+
+
 DETECTORS = {
     "centered": DetectorGeometry(96, 80, 1.0, 1.0, 0.0, 0.0, 200.0, 400.0,
                                  2.0),
@@ -49,7 +57,7 @@ DETECTORS = {
 def test_weight_map_matches_jax(name):
     det = DETECTORS[name]
     ours = weight_map(det, CPU).numpy()
-    ref = np.asarray(jax_weighting.weight_map(det))
+    ref = np.asarray(jax_weighting.weight_map(_jax_det(det)))
     assert ours.shape == (det.n_col, det.n_row)
     np.testing.assert_allclose(ours, ref, rtol=1e-6)
 
@@ -60,7 +68,7 @@ def test_weighting_matches_golden(name):
     p = np.random.default_rng(1).standard_normal(
         (det.n_col, det.n_row)).astype(np.float32)
     ours = apply_weights(torch.from_numpy(p), weight_map(det, CPU)).numpy()
-    np.testing.assert_allclose(ours, golden_weight(p, det), rtol=1e-5,
+    np.testing.assert_allclose(ours, golden_weight(p, _jax_det(det)), rtol=1e-5,
                                atol=1e-6)
 
 
@@ -89,7 +97,7 @@ def test_filter_projections_matches_jax_and_golden(name):
     ref = np.asarray(jax_filtering.filter_projections(
         jnp.asarray(p), jax_filtering.ramp_filter_spectrum(
             det.n_row, det.l_px_row), det.n_row))
-    gold = np.stack([golden_filter(f, det) for f in p])
+    gold = np.stack([golden_filter(f, _jax_det(det)) for f in p])
     scale = np.abs(gold).max()
     assert ours.shape == p.shape
     assert np.abs(ours - ref).max() <= 1e-5 * scale
@@ -104,7 +112,7 @@ def test_preprocess_chunk_matches_jax():
                             ramp_filter_spectrum(det.n_row, det.l_px_row, CPU),
                             det.n_row).numpy()
     ref = np.asarray(jax_pipeline.preprocess_chunk(
-        jnp.asarray(p), jax_weighting.weight_map(det),
+        jnp.asarray(p), jax_weighting.weight_map(_jax_det(det)),
         jax_filtering.ramp_filter_spectrum(det.n_row, det.l_px_row),
         det.n_row))
     assert np.abs(ours - ref).max() <= 1e-5 * np.abs(ref).max()

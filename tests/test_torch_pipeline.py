@@ -2,14 +2,17 @@
 the NumPy golden oracle: BASELINE config 1 (64^3, 180 projections,
 tests/test_golden_fdk_e2e.py:17-36) on CPU torch and CPU JAX."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from paris_tpu import pipeline as jax_pipeline
-from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
+from paris_tpu import geometry as jax_geometry
 from paris_tpu.golden import golden_fdk
 from paris_tpu.phantom import cone_beam_project
+from paris_tpu_torch.geometry import DetectorGeometry, derive_volume_geometry
 from paris_tpu_torch.pipeline import (Reconstructor, from_jax_state,
                                       reconstruct, resolve_backend)
 
@@ -25,6 +28,12 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _jax_geo(det, vol):
+    """The port's geometry objects as the JAX package's classes."""
+    return (jax_geometry.DetectorGeometry(**dataclasses.asdict(det)),
+            jax_geometry.VolumeGeometry(**dataclasses.asdict(vol)))
+
+
 def _rel_rmse(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2)) / np.abs(b).max())
 
@@ -34,7 +43,7 @@ def scan64():
     det = DetectorGeometry(64, 64, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 2.0)
     vol = derive_volume_geometry(det)
     angles = np.arange(180, dtype=np.float32) * det.delta_phi
-    projs = cone_beam_project(det, angles,
+    projs = cone_beam_project(_jax_geo(det, vol)[0], angles,
                               scale_mm=vol.dim_x * vol.l_vx_x / 2.0 * 0.9)
     return det, vol, projs, angles
 
@@ -42,13 +51,13 @@ def scan64():
 @pytest.fixture(scope="module")
 def golden64(scan64):
     det, vol, projs, angles = scan64
-    return golden_fdk(projs, angles, det, vol)
+    return golden_fdk(projs, angles, *_jax_geo(det, vol))
 
 
 @pytest.fixture(scope="module")
 def jax_xla64(scan64):
     det, vol, projs, angles = scan64
-    return jax_pipeline.reconstruct(det, vol, projs, angles, chunk_size=16,
+    return jax_pipeline.reconstruct(*_jax_geo(det, vol), projs, angles, chunk_size=16,
                                     backend="xla")
 
 
@@ -82,8 +91,8 @@ def test_z_offset_roi_block_matches_jax(scan64):
     kw = dict(chunk_size=16, z_offset=20, roi_offset=(5, 3, 2),
               block_shape=(12, 40, 44))
     sub = slice(0, 40)
-    ref = jax_pipeline.reconstruct(det, vol, projs[sub], angles[sub],
-                                   backend="xla", **kw)
+    ref = jax_pipeline.reconstruct(*_jax_geo(det, vol), projs[sub],
+                                   angles[sub], backend="xla", **kw)
     ours = reconstruct(det, vol, projs[sub], angles[sub], backend="torch",
                        **kw)
     assert ours.shape == (12, 40, 44)
@@ -98,7 +107,7 @@ def test_fast_mode_matches_jax_pallas_fast(scan64):
     sub = slice(0, 32)
     block = (8, vol.dim_y, vol.dim_x)
     jax_rec = jax_pipeline.Reconstructor(
-        det, vol, chunk_size=16, backend="pallas", interpret=True,
+        *_jax_geo(det, vol), chunk_size=16, backend="pallas", interpret=True,
         accuracy="fast", block_shape=block)
     ref = jax_rec.run(projs[sub], angles[sub], z_offset=28)
     ours = Reconstructor(det, vol, chunk_size=16, backend="torch",
@@ -114,7 +123,7 @@ def test_accumulate_continues_a_jax_block(scan64):
     det, vol, projs, angles = scan64
     sub = slice(0, 48)
     block = (16, vol.dim_y, vol.dim_x)
-    jax_rec = jax_pipeline.Reconstructor(det, vol, chunk_size=16,
+    jax_rec = jax_pipeline.Reconstructor(*_jax_geo(det, vol), chunk_size=16,
                                          backend="pallas", interpret=True,
                                          accuracy="exact", block_shape=block)
     half = jax_rec.accumulate(jax_rec.init_block(), projs[:16], angles[:16],
@@ -124,8 +133,8 @@ def test_accumulate_continues_a_jax_block(scan64):
     acc = from_jax_state(np.asarray(half), block, rec.device)
     out = rec.finalize(rec.accumulate(acc, projs[16:48], angles[16:48],
                                       z_offset=24))
-    ref = jax_pipeline.reconstruct(det, vol, projs[sub], angles[sub],
-                                   backend="xla", z_offset=24,
+    ref = jax_pipeline.reconstruct(*_jax_geo(det, vol), projs[sub],
+                                   angles[sub], backend="xla", z_offset=24,
                                    block_shape=block)
     assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
 
