@@ -47,10 +47,32 @@ Phases (each raises on failure; the script then exits non-zero):
         world-1 NCCL group, real all-gathers, all_reduce and barriers.
         Same RMSE and launch gates; its ddbvf must equal phase 3's fast
         job's byte for byte.  Job seconds beside the single-device job's.
+  6. BASELINE config 5 at full width: a 2048 x 2048 detector and the
+     2048 x 2048 x 2055 volume (34.5 GB):
+     a. the analytic projector on the card (phantom.cone_beam_project_torch)
+        against the float64 NumPy projector on 2 frames of the 2048^2
+        detector; gates relative RMSE < 1e-3 and max|err| < 0.05 * max
+        (tests/test_golden_fdk_e2e.py:91-103); ms per 8-frame batch;
+     b. the scan synthesized on the card as HIS files
+        (benchmarks.synth_c5_3600), then the job through cli.main with
+        --backend cuda --accuracy fast --chunk-size 8 --block-dz 344
+        --max-blocks 2: blocks 0 and 1 of the six, 11.5 GB written into
+        the sparse 34.5 GB ddbvf.  The seam slab z 342..345 is held
+        against the golden oracle over the same stored frames, computed
+        by benchmarks.golden_slab in one process per core while the job
+        runs (relative RMSE <= 1e-3); K1's launches must equal 2 blocks x
+        8 chunks.  Prints the job's seconds, stage timers and band rows;
+     c. K1 at one (344, 2048, 2048) block (block 1, on the job's band) in
+        exact and fast mode with C = 8, the job's chunk: kernel against
+        plain version (1e-4 * max|plain|), ms (CUDA events), registers,
+        blocks per SM and share of the bound; and fast at C = 16.
+     Cut, for the time limit and the disk: 64 projections, not 3600;
+     2 of the 6 blocks; fast mode only.  Needs ~13 GB of free disk in the
+     temporary directory and fails, naming the bytes, without it.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists the kernels with their launches (K1: the jobs of phases 3 and 5b,
-each counted from 0 just before it), errors, times and bounds (K1: ms per
+it lists the kernels with their launches (K1: the jobs of phases 3, 5b and
+6b, each counted from 0 just before it), errors, times and bounds (K1: ms per
 launch at the fast (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile
 of 64 gathers, the kernel's from a launch of 256 tiles).  bound_ms is the
 larger of the bytes the function moves over 3.35 TB/s and its operations
@@ -79,6 +101,11 @@ N_PROJ = 64
 CHUNK = 16
 BLOCK_DZ = 512
 SLABS = [(510, 4), (300, 4)]     # (z0, dz): the block seam, an interior slab
+C5_N_PROJ = 64           # config 5's scan, cut from 3600 for the time limit
+C5_CHUNK = 8
+C5_BLOCK_DZ = 344
+C5_MAX_BLOCKS = 2        # of the 6 blocks: bounds the disk and the time
+C5_SLAB = (342, 4)       # straddles the seam between blocks 0 and 1
 
 
 def phase_device():
@@ -316,17 +343,12 @@ def phase_kernel(logs):
     return cmp.max_abs_err, timings
 
 
-def _rel_rmse(a, b):
-    import numpy as np
-    return float(np.sqrt(np.mean((a.astype(np.float64) - b) ** 2))
-                 / np.abs(b).max())
-
-
 def _gate_job(label, out, vol, golden):
     """The job's ddbvf: its dimensions, and the relative RMSE of the gate
     slabs against golden_fdk_stream.  Returns the RMSEs; raises on a
     failed gate."""
     import numpy as np
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import rel_rmse
     from paris_tpu_torch.io import ddbvf
     if ddbvf.open_meta(out) != (vol.dim_x, vol.dim_y, vol.dim_z):
         raise AssertionError(f"{label}: wrong ddbvf dimensions")
@@ -335,10 +357,10 @@ def _gate_job(label, out, vol, golden):
         got = ddbvf.read_slices(out, z0, dz)
         if got.shape != ref.shape or not np.isfinite(got).all():
             raise AssertionError(f"{label}: bad slab at z {z0}")
-        rmse[f"z{z0}..{z0 + dz - 1}"] = _rel_rmse(got, ref)
+        rmse[f"z{z0}..{z0 + dz - 1}"] = rel_rmse(got, ref)
         if z0 == SLABS[0][0]:            # the two slices at the seam
             for k in (1, 2):
-                rmse[f"z{z0 + k}"] = _rel_rmse(got[k], ref[k])
+                rmse[f"z{z0 + k}"] = rel_rmse(got[k], ref[k])
     bad = {k: v for k, v in rmse.items()
            if not (math.isfinite(v) and v <= GATE_RMSE)}
     if bad:
@@ -654,6 +676,212 @@ def _gather_tile_bound_ms(table_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _config5():
+    from paris_tpu_torch.benchmarks.synth_c5_3600 import config5
+    from paris_tpu_torch.geometry import derive_volume_geometry
+    det = config5(C5_N_PROJ)
+    return det, derive_volume_geometry(det)
+
+
+def phase_projector():
+    """6a: the card's projector against the NumPy one at config 5."""
+    import numpy as np
+    import torch
+    from paris_tpu_torch.benchmarks.synth_c5_3600 import phantom_scale
+    from paris_tpu_torch.phantom import (cone_beam_project,
+                                         cone_beam_project_torch)
+    det, vol = _config5()
+    scale = phantom_scale(vol)
+    ang = np.asarray([0.0, 37.5])
+    t0 = time.perf_counter()
+    ref = cone_beam_project(det, ang, scale)
+    numpy_s = time.perf_counter() - t0
+    got = cone_beam_project_torch(det, ang, scale).cpu().numpy()
+    peak = float(np.abs(ref).max())
+    rmse = float(np.sqrt(np.mean((got.astype(np.float64) - ref) ** 2)))
+    err = float(np.abs(got - ref).max())
+    batch = np.arange(8, dtype=np.float64) * det.delta_phi
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(lambda: cone_beam_project_torch(det, batch, scale), n=10,
+                  warmup=2)
+    ok = rmse / peak < 1e-3 and err / peak < 0.05
+    print(f"config 5 projector (card) against the NumPy projector, 2 frames "
+          f"of {det.n_col}x{det.n_row}: relative RMSE {rmse / peak:.2e} "
+          f"(gate 1e-3), max|err| {err / peak:.2e} of max (gate 0.05); "
+          f"{ms:.3f} ms per 8-frame batch on the card "
+          f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak), NumPy "
+          f"{numpy_s / 2:.2f} s per frame  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's projector disagrees with NumPy")
+
+
+def phase_config5(workdir):
+    """6b: config 5's first two blocks through cli.main; returns K1's
+    launches in that job."""
+    import shutil
+    import numpy as np
+    from paris_tpu_torch import cli
+    from paris_tpu_torch.benchmarks import golden_slab
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import (
+        job_log_tap, rel_rmse)
+    from paris_tpu_torch.benchmarks.synth_c5_3600 import synthesize
+    from paris_tpu_torch.geometry import plan_z_blocks
+    from paris_tpu_torch.io import ddbvf
+    from paris_tpu_torch.io.geometry_file import dump_geometry_file
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    det, vol = _config5()
+    info = plan_z_blocks(vol, block_dz=C5_BLOCK_DZ)
+    blocks = info.blocks[:C5_MAX_BLOCKS]
+    slice_bytes = 4 * vol.dim_x * vol.dim_y
+    need = (C5_N_PROJ * (4 * det.n_row * det.n_col + 32) + slice_bytes
+            * sum(b.dim_z for b in blocks) + (256 << 20))
+    free = shutil.disk_usage(workdir).free
+    if free < need:
+        raise RuntimeError(f"phase 6 needs {need} bytes of disk in {workdir}"
+                           f" (the scan and {len(blocks)} blocks), {free} "
+                           "are free")
+    c5dir = os.path.join(workdir, "c5")
+    synth = synthesize(c5dir, det, C5_N_PROJ, subdir="proj")
+    print(f"config 5: {vol.shape_zyx} volume, {C5_N_PROJ} projections of "
+          f"{det.n_col}x{det.n_row} synthesized on the card in "
+          f"{synth['seconds']:.2f} s ({synth['card_ms_per_batch']:.3f} ms "
+          f"per 8-frame batch on the card, {synth['write_seconds']:.2f} s "
+          f"of HIS writes)")
+    geo = os.path.join(c5dir, "scan.geo")
+    dump_geometry_file(det, geo)
+    shards = os.cpu_count() or 1
+    t_golden = time.perf_counter()
+    procs = golden_slab.start_shards(c5dir, det, [C5_SLAB], C5_N_PROJ,
+                                     shards, subdir="proj")
+    try:
+        backproject_chunk_cuda.launches = 0          # this path starts here
+        with job_log_tap() as tap:
+            t0 = time.perf_counter()
+            rc = cli.main(["--geometry", geo, "--input",
+                           os.path.join(c5dir, "proj"), "--output", c5dir,
+                           "--name", "c5", "--backend", "cuda",
+                           "--accuracy", "fast", "--chunk-size",
+                           str(C5_CHUNK), "--block-dz", str(C5_BLOCK_DZ),
+                           "--max-blocks", str(C5_MAX_BLOCKS)])
+            seconds = time.perf_counter() - t0
+        launched = backproject_chunk_cuda.launches
+    except BaseException:
+        for p in procs:
+            p.terminate()
+            p.join()
+        raise
+    golden = golden_slab.finish_shards(procs, c5dir, [C5_SLAB],
+                                       timeout_s=900)[C5_SLAB[0]]
+    golden_s = time.perf_counter() - t_golden
+    if rc != 0:
+        raise RuntimeError(f"cli.main (config 5) exited {rc}")
+    per_job = len(blocks) * -(-C5_N_PROJ // C5_CHUNK)
+    if launched != per_job:
+        raise AssertionError(
+            f"config 5: kernel launched {launched} times, expected "
+            f"{len(blocks)} blocks x {per_job // len(blocks)} chunks")
+    out = os.path.join(c5dir, "c5.ddbvf")
+    if ddbvf.open_meta(out) != (vol.dim_x, vol.dim_y, vol.dim_z):
+        raise AssertionError("config 5: wrong ddbvf dimensions")
+    with open(out + ".manifest.json") as f:
+        done = json.load(f)["completed_blocks"]
+    if done != [b.index for b in blocks]:
+        raise AssertionError(f"config 5: blocks {done} complete, expected "
+                             f"{[b.index for b in blocks]}")
+    z0, dz = C5_SLAB
+    got = ddbvf.read_slices(out, z0, dz)
+    if got.shape != golden.shape or not np.isfinite(got).all():
+        raise AssertionError("config 5: bad seam slab")
+    rmse = {f"z{z0}..{z0 + dz - 1}": rel_rmse(got, golden)}
+    for k in (1, 2):
+        rmse[f"z{z0 + k}"] = rel_rmse(got[k], golden[k])
+    updates = sum(b.dim_z for b in blocks) * vol.dim_y * vol.dim_x * C5_N_PROJ
+    print(f"  fast job, blocks {done} of {info.num} ({C5_BLOCK_DZ} slices "
+          f"each): {seconds:.2f} s ({updates / seconds / 1e9:.2f} Gupd/s "
+          f"end to end), {launched} launches, band {tap.band_rows[0]} of "
+          f"{tap.band_rows[1]} rows; stage timings: {tap.timings[-1]}; "
+          "per block proj/s, Gupd/s: " + "; ".join(
+              f"{p:.1f}, {g:.1f}" for p, g in tap.block_rates)
+          + "; relative RMSE "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rmse.items())
+          + f"; golden over {shards} processes {golden_s:.1f} s (in "
+          f"parallel with the job)")
+    bad = {k: v for k, v in rmse.items()
+           if not (math.isfinite(v) and v <= GATE_RMSE)}
+    if bad:
+        raise AssertionError(f"config 5: RMSE gate {GATE_RMSE:g} failed at "
+                             f"{bad}")
+    os.remove(out)
+    return launched
+
+
+def phase_k1_config5(logs):
+    """6c: K1 at a (344, 2048, 2048) config-5 block on the job's band;
+    returns max|kernel - plain|."""
+    import numpy as np
+    import torch
+    from paris_tpu_torch.geometry import detector_row_band, plan_z_blocks
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.ops.backprojection_torch import (
+        backproject_chunk_torch, make_bp_grid)
+    from paris_tpu_torch.pipeline import Reconstructor
+    det, vol = _config5()
+    info = plan_z_blocks(vol, block_dz=C5_BLOCK_DZ)
+    vp = max(hi - lo for lo, hi in (
+        detector_row_band(det, vol, b.z0, info.dim_z_padded)
+        for b in info.blocks))
+    shape = (info.dim_z_padded, vol.dim_y, vol.dim_x)
+    z0 = info.blocks[1].z0
+    v_lo = Reconstructor(det, vol, chunk_size=C5_CHUNK, backend="cuda",
+                         block_shape=shape, v_band_width=vp)._v_band_lo(z0)
+    dev = torch.device("cuda", 0)
+    grid = make_bp_grid(det, vol)
+    rng = np.random.default_rng(2026)
+    max_err = 0.0
+    print(f"K1 at a config-5 block {shape}, z0={z0}, band rows "
+          f"{v_lo}..{v_lo + vp - 1} ({vp} of {det.n_col}); gate max|err| <= "
+          f"{GATE_KERNEL:g} * max|plain| at C={C5_CHUNK}:")
+    for dtype, mode, C in ((torch.float32, "exact", C5_CHUNK),
+                           (torch.bfloat16, "fast", C5_CHUNK),
+                           (torch.bfloat16, "fast", 16)):
+        projs = rng.standard_normal((C, vp, det.n_row)).astype(np.float32)
+        phi = np.deg2rad(np.arange(C, dtype=np.float32) * det.delta_phi
+                         + np.float32(0.9)).astype(np.float32)
+        band = torch.as_tensor(projs, device=dev).to(dtype).contiguous()
+        s = torch.as_tensor(np.sin(phi), device=dev)
+        c = torch.as_tensor(np.cos(phi), device=dev)
+        acc = torch.zeros(shape, device=dev)
+        check = ""
+        if C == C5_CHUNK:
+            kern = backproject_chunk_cuda(torch.zeros(shape, device=dev),
+                                          band, s, c, grid, z0, v_lo=v_lo)
+            plain = backproject_chunk_torch(torch.zeros(shape, device=dev),
+                                            band, s, c, grid, z0, v_lo=v_lo)
+            torch.cuda.synchronize()
+            err = float((kern - plain).abs().max())
+            scale = float(plain.abs().max())
+            del kern, plain
+            max_err = max(max_err, err)
+            if not (math.isfinite(err) and err <= GATE_KERNEL * scale):
+                raise AssertionError(f"K1 disagrees with plain at config 5 "
+                                     f"({mode})")
+            check = (f"max|err| {err:.3e} max|plain| {scale:.3e} "
+                     f"(rel {err / scale:.2e}) ok; ")
+            plain_ms = _time_ms(lambda: backproject_chunk_torch(
+                acc, band, s, c, grid, z0, v_lo=v_lo), n=1, warmup=0)
+            check += f"plain {plain_ms:.1f} ms; "
+        ms = _time_ms(lambda: backproject_chunk_cuda(
+            acc, band, s, c, grid, z0, v_lo=v_lo), n=5, warmup=1)
+        text, bound, bound_by = _k1_profile(logs["backproject"], band, shape,
+                                            z0, grid)
+        upd = shape[0] * shape[1] * shape[2] * C
+        print(f"  {mode:<5} C={C:<2} {check}kernel {ms:.3f} ms "
+              f"({upd / ms / 1e6:.1f} Gupd/s), {bound / ms:.1%} of the "
+              f"{bound:.3f} ms bound ({bound_by}); {text}")
+        del acc, band
+    return max_err
+
+
 def _same_bytes(a, b, block=64 << 20):
     if os.path.getsize(a) != os.path.getsize(b):
         return False
@@ -677,6 +905,9 @@ def main() -> int:
         micro_launches, micro_err, tile_ms = phase_micro()
         max_abs_err = max(max_abs_err, phase_band(logs))
         launches += phase_distributed(workdir, job)
+        phase_projector()
+        launches += phase_config5(workdir)
+        max_abs_err = max(max_abs_err, phase_k1_config5(logs))
     ms, plain_ms, bound, bound_by = timings[("fast", 64)]
     kernels = [{
         "name": "bp_kernel (fast: bf16 projections, f32 arithmetic)",

@@ -24,7 +24,7 @@ import logging
 import os
 import sys
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,7 @@ from .utils.profiling import ThroughputMeter, trace
 
 logger = logging.getLogger("paris_tpu_torch.app")
 
-__all__ = ["ReconstructionJob", "run_job"]
+__all__ = ["ReconstructionJob", "JobPlan", "plan_job", "run_job"]
 
 
 @dataclasses.dataclass
@@ -163,6 +163,51 @@ def _plan_write_overlap(job, vol_geo: VolumeGeometry, info: SubvolumeInfo,
                                   fit_proj_buffer, free_est, n_shards)
 
 
+@dataclasses.dataclass(frozen=True)
+class JobPlan:
+    """The z-blocks ``run_job`` runs a job in: ``info``, the blocks;
+    ``overlap``, whether block k drains to disk while block k+1
+    reconstructs; ``hbm_budget``, the per-block device-memory budget the
+    plan was cut to (None: no budget, one block unless the extent is
+    forced)."""
+    info: SubvolumeInfo
+    overlap: bool
+    hbm_budget: Optional[int]
+
+
+def plan_job(job: ReconstructionJob, vol_geo: VolumeGeometry,
+             device: torch.device) -> JobPlan:
+    """The plan ``run_job`` takes for ``job`` on ``device``: the job's
+    budget, else 45 % of the card's free memory; the blocks that fit it
+    (or the forced extent); then the cut for the write overlap.  A caller
+    that must know where the block seams fall calls it too, and pins the
+    result into the job (``block_dz=plan.info.dim_z_padded``): the free
+    memory it reads can change between two calls.  Raises ValueError for
+    a budget or extent no plan fits."""
+    proj_bytes = 4 * job.det.n_row * job.det.n_col
+    proj_buffer = 4 * proj_bytes * job.chunk_size
+    hbm_budget = job.hbm_budget_bytes
+    if hbm_budget is None:
+        hbm_budget = _auto_hbm_budget(device)
+        if hbm_budget is not None:
+            logger.info("auto device-memory budget: %.1f GB",
+                        hbm_budget / 2**30)
+    info = plan_z_blocks(vol_geo, hbm_budget_bytes=hbm_budget,
+                         proj_buffer_bytes=proj_buffer,
+                         block_dz=job.block_dz)
+    logger.info("z-split: %d block(s) of %d slices (padded)",
+                info.num, info.dim_z_padded)
+    # Overlapped finalize: block k's device-to-host copy and ddbvf write
+    # run on the writer thread while block k+1 reconstructs.  It needs two
+    # accumulators resident at once, so it engages only when they fit.
+    free_est = _overlap_free_est(_free_hbm_bytes(device),
+                                 job.hbm_budget_bytes)
+    info, overlap = _plan_write_overlap(
+        job, vol_geo, info, free_est, proj_buffer,
+        hbm_budget=hbm_budget, proj_buffer=proj_buffer)
+    return JobPlan(info, overlap, hbm_budget)
+
+
 def _widest_band(job, full_geo: VolumeGeometry,
                  info: SubvolumeInfo) -> Optional[int]:
     """Rows of the widest detector-row band over the blocks, so that one
@@ -251,13 +296,31 @@ class _ProjectionCache:
     a multi-block job reads the HIS directory once.  An explicit
     ``cache_projections=True`` always collects; None collects when a
     later block will reuse it; a stream above ``max_cache_bytes`` is not
-    kept."""
+    kept.  It keeps the stream's (chunk, angles) pairs as they came, and
+    never joins them into one array: the host holds at most
+    ``max_cache_bytes`` plus the chunk that crosses it."""
 
     def __init__(self, job: ReconstructionJob, info: SubvolumeInfo):
         self.collect = job.cache_projections is True or (
             job.cache_projections is None and info.num > 1)
         self.max_bytes = job.max_cache_bytes
-        self.data: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self.pairs: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
+
+    def tap(self, chunks):
+        """Pass ``chunks`` through, keeping them for later blocks while
+        they fit ``max_bytes``; the kept pairs become ``pairs`` when the
+        stream has ended."""
+        kept, nbytes = [], 0
+        for data, angs in chunks:
+            if self.collect:
+                kept.append((data, angs))
+                nbytes += data.nbytes
+                if nbytes > self.max_bytes:
+                    self.collect = False
+                    kept.clear()
+            yield data, angs
+        if self.collect and kept:
+            self.pairs = kept
 
 
 @contextlib.contextmanager
@@ -290,40 +353,21 @@ def _reconstruct_block(rec, job: ReconstructionJob, block, info,
     # overhead, not useful updates)
     meter = ThroughputMeter(block.dim_z * vol_geo.dim_y * vol_geo.dim_x)
     with timers.time("reconstruct"), trace(job.trace_dir, device):
-        if cache.data is not None:
-            data, angs = cache.data
-            volume = rec.accumulate(volume, data, angs, z_offset=block.z0,
-                                    roi_offset=roi)
-            meter.add(len(angs))
-        else:
-            datas, angles = [], []
-
-            def pairs():
-                # consumed on THIS thread by stage_stream; staging
-                # (quantize + h2d) runs on its worker threads
-                for data, angs in chunks():
-                    if cache.collect:
-                        datas.append(data)
-                        angles.append(angs)
-                        if sum(d.nbytes for d in datas) > cache.max_bytes:
-                            cache.collect = False
-                            datas.clear()
-                            angles.clear()
-                    yield data, angs
-
-            for staged, k in stage_stream(rec.stage_chunk, pairs()):
-                volume = rec.step_staged(volume, staged, z_offset=block.z0,
-                                         roi_offset=roi)
-                if first:
-                    # time-to-first-chunk marker: the first step of a
-                    # process builds the kernel
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    logger.info("first chunk accumulated")
-                    first = False
-                meter.add(k)
-            if cache.collect and datas:
-                cache.data = (np.concatenate(datas), np.concatenate(angles))
+        # consumed on THIS thread by stage_stream; staging (quantize +
+        # h2d) runs on its worker threads
+        pairs = (cache.pairs if cache.pairs is not None
+                 else cache.tap(chunks()))
+        for staged, k in stage_stream(rec.stage_chunk, pairs):
+            volume = rec.step_staged(volume, staged, z_offset=block.z0,
+                                     roi_offset=roi)
+            if first:
+                # time-to-first-chunk marker: the first step of a
+                # process builds the kernel
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                logger.info("first chunk accumulated")
+                first = False
+            meter.add(k)
         # close the stage only when the card has finished
         ready = None
         if device.type == "cuda":
@@ -373,33 +417,11 @@ def _run_job(job: ReconstructionJob) -> str:
         logger.info("ROI volume [vx]: %d x %d x %d",
                     vol_geo.dim_x, vol_geo.dim_y, vol_geo.dim_z)
 
-    proj_bytes = 4 * job.det.n_row * job.det.n_col
-    proj_buffer = 4 * proj_bytes * job.chunk_size
-    hbm_budget = job.hbm_budget_bytes
-    if hbm_budget is None:
-        hbm_budget = _auto_hbm_budget(device)
-        if hbm_budget is not None:
-            logger.info("auto device-memory budget: %.1f GB",
-                        hbm_budget / 2**30)
     try:
-        info = plan_z_blocks(
-            vol_geo,
-            hbm_budget_bytes=hbm_budget,
-            proj_buffer_bytes=proj_buffer,
-            block_dz=job.block_dz,
-        )
+        plan = plan_job(job, vol_geo, device)
     except ValueError as e:
         raise StageConstructionError(str(e)) from e
-    logger.info("z-split: %d block(s) of %d slices (padded)",
-                info.num, info.dim_z_padded)
-    # Overlapped finalize: block k's device-to-host copy and ddbvf write
-    # run on the writer thread while block k+1 reconstructs.  It needs two
-    # accumulators resident at once, so it engages only when they fit.
-    free_est = _overlap_free_est(_free_hbm_bytes(device),
-                                 job.hbm_budget_bytes)
-    info, overlap = _plan_write_overlap(
-        job, vol_geo, info, free_est, proj_buffer,
-        hbm_budget=hbm_budget, proj_buffer=proj_buffer)
+    info, overlap = plan.info, plan.overlap
 
     try:
         sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,

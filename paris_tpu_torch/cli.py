@@ -57,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "cuda", "torch"],
                    help="backprojection backend: cuda (the hand-written "
                         "kernel), torch (plain PyTorch on the CPU), auto "
-                        "(cuda when a card is present)")
+                        "(cuda; fails without a card)")
     p.add_argument("--chunk-size", type=int, default=16,
                    help="projections accumulated per device pass")
     p.add_argument("--hbm-budget-gb", type=float, default=None,

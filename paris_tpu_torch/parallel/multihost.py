@@ -59,7 +59,7 @@ def initialize(coordinator: Optional[str] = None,
     and ``process_id``; torchrun's environment (``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); else a group of
     one.  ``backend`` (auto/cuda/torch) picks NCCL on the card or gloo on
-    the CPU.  Must run before the first device query.
+    the CPU; ``auto`` is the card.  Must run before the first device query.
     """
     if dist.is_initialized():
         raise RuntimeError("a default process group already exists")

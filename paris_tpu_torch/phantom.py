@@ -3,8 +3,10 @@
 The port's own copy of the NumPy half of ``paris_tpu/phantom.py``: the
 test-data generator for the reconstruction pipeline (BASELINE.md config 1
 calls for a synthetic Shepp-Logan cone-beam scan as the correctness
-gate).  The JAX package's accelerator-batched projector
-(``cone_beam_project_jax``) has no counterpart here yet.
+gate).  ``cone_beam_project_torch`` is the counterpart of the JAX
+package's accelerator-batched projector (``cone_beam_project_jax``): the
+same float32 formula as plain torch ops on the card, for scans at full
+size.
 
 The forward projector computes line integrals through the ellipsoid
 phantom ANALYTICALLY (ray/ellipsoid intersection chord lengths), so the
@@ -14,11 +16,15 @@ backprojection code under test.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 from .geometry import DetectorGeometry, VolumeGeometry
 
-__all__ = ["SHEPP_LOGAN_ELLIPSOIDS", "shepp_logan_volume", "cone_beam_project"]
+__all__ = ["SHEPP_LOGAN_ELLIPSOIDS", "shepp_logan_volume", "cone_beam_project",
+           "cone_beam_project_torch", "projector_device"]
 
 # (value, x0, y0, z0, a, b, c, rot_deg) — canonical Kak-Slaney 3D variant,
 # coordinates in units of the phantom half-extent (= 1.0).
@@ -126,3 +132,90 @@ def cone_beam_project(
             acc += A * chord
         out[i] = acc.astype(dtype)
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def _projector_constants(det: DetectorGeometry, scale_mm: float,
+                         device: torch.device):
+    """Per-geometry constants of ``cone_beam_project_torch``, built once:
+    the pixel centres h (1, 1, n_row) and v (1, n_col, 1) as float32
+    tensors on ``device``, and per ellipsoid its float32 scalars, cast
+    where ``paris_tpu/phantom.py:_jax_projector`` casts them."""
+    n_row, n_col = det.n_row, det.n_col
+    # +delta_s, as the JAX projector and the cosine weighting have it
+    h_min = det.delta_s * det.l_px_row - n_row * det.l_px_row / 2.0
+    v_min = det.delta_t * det.l_px_col - n_col * det.l_px_col / 2.0
+    h = (h_min + (np.arange(n_row) + 0.5) * det.l_px_row).astype(np.float32)
+    v = (v_min + (np.arange(n_col) + 0.5) * det.l_px_col).astype(np.float32)
+    table = []
+    for A, x0, y0, z0, a, b, c, rot in SHEPP_LOGAN_ELLIPSOIDS:
+        th = np.deg2rad(rot)
+        table.append(tuple(np.float32(x) for x in (
+            A, np.cos(th), np.sin(th), x0 * scale_mm, y0 * scale_mm,
+            -z0 * scale_mm, 1.0 / (a * scale_mm), 1.0 / (b * scale_mm),
+            1.0 / (c * scale_mm))))
+    return (torch.from_numpy(h).to(device).view(1, 1, n_row),
+            torch.from_numpy(v).to(device).view(1, n_col, 1), tuple(table))
+
+
+def projector_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None is the current card, and raises
+    when there is none (the CPU is asked for with ``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the torch projector runs on the card by default, and "
+            "torch.cuda.is_available() is False; pass device='cpu' to "
+            "project on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def cone_beam_project_torch(det: DetectorGeometry, angles_deg, scale_mm: float,
+                            *, device=None) -> torch.Tensor:
+    """Analytic cone-beam projections of the phantom as a (B, n_col, n_row)
+    float32 tensor on ``device`` (default: the card; with no card it
+    raises, and ``device="cpu"`` asks for the CPU).
+
+    The counterpart of ``paris_tpu/phantom.py:cone_beam_project_jax``: the
+    same float32 arithmetic as its jitted batch function, in its order,
+    with the cancellation-stable ``(qb/2)^2 - qa*qc`` discriminant, as
+    plain torch ops (no kernel: the JAX package's is an XLA function, not
+    a Pallas kernel).  Terms that depend on the detector row only, or on
+    the column only, stay broadcast instead of materialised; the values
+    are the same.  Float32 rounding differs from the float64 NumPy
+    ``cone_beam_project`` on the one-pixel rims of tangent rays; a golden
+    oracle that reads the same stored frames is not affected.
+    """
+    device = projector_device(device)
+    h, v, table = _projector_constants(det, float(scale_mm), device)
+    d_so, d_sd = abs(det.d_so), det.d_sd
+    phis = np.deg2rad(np.asarray(angles_deg, np.float64)).astype(np.float32)
+    phis = torch.from_numpy(phis).to(device)
+    sin = torch.sin(phis)[:, None, None]
+    cos = torch.cos(phis)[:, None, None]
+    sx = -d_so * cos                                   # (B, 1, 1)
+    sy = -d_so * sin
+    dx = (d_sd - d_so) * cos - h * sin - sx            # (B, 1, n_row)
+    dy = (d_sd - d_so) * sin + h * cos - sy
+    dz = v                                             # (1, n_col, 1)
+    norm = torch.sqrt(dx * dx + dy * dy + dz * dz)     # (B, n_col, n_row)
+    acc = torch.zeros_like(norm)
+    for A, ct, st, x0s, y0s, oz, ia, ib, ic in table:
+        ox = sx - x0s
+        oy = sy - y0s
+        oxr = (ox * ct + oy * st) * ia
+        oyr = (-ox * st + oy * ct) * ib
+        ozr = oz * ic
+        dxr = (dx * ct + dy * st) * ia
+        dyr = (-dx * st + dy * ct) * ib
+        dzr = dz * ic
+        qa = dxr * dxr + dyr * dyr + dzr * dzr
+        hb = oxr * dxr + oyr * dyr + ozr * dzr           # qb / 2
+        qc = oxr * oxr + oyr * oyr + ozr * ozr - 1.0
+        disc4 = hb * hb - qa * qc                        # disc / 4
+        hit = disc4 > 0.0
+        chord = torch.where(hit, 2.0 * torch.sqrt(
+            torch.where(hit, disc4, 0.0)) / qa, 0.0) * norm
+        acc += A * chord
+    return acc

@@ -126,14 +126,17 @@ def resolve_backend(backend: str, device=None) -> Tuple[str, torch.device]:
 
     ``cuda`` runs the hand-written kernel on a card and raises when there
     is none; ``torch`` runs the plain version on the CPU; ``auto`` is
-    ``cuda`` when ``torch.cuda.is_available()``, else ``torch``.
+    ``cuda``: a job never moves to the CPU unless it asks for ``torch``.
     """
+    requested = backend
     if backend == "auto":
-        backend = "cuda" if torch.cuda.is_available() else "torch"
+        backend = "cuda"
     if backend == "cuda":
         if not torch.cuda.is_available():
-            raise ValueError("backend 'cuda' needs a CUDA device, and "
-                             "torch.cuda.is_available() is False")
+            raise ValueError(
+                f"backend {requested!r} needs a CUDA device, and "
+                "torch.cuda.is_available() is False; ask for the CPU with "
+                "--backend torch (backend='torch')")
         device = torch.device("cuda" if device is None else device)
         if device.type != "cuda":
             raise ValueError(f"backend 'cuda' cannot run on {device}")

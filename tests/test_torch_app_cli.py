@@ -334,3 +334,65 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_default_backend_without_card(scan, tmp_path, capsys):
+    """``auto``, the default of the job, the CLI and the distributed CLI,
+    is the card: without one each fails, names ``--backend torch``, and
+    writes no volume."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a card")
+    with pytest.raises(StageConstructionError, match="--backend torch"):
+        run_job(ReconstructionJob(det=scan["det"], input_path=scan["pdir"],
+                                  output_path=str(tmp_path)))
+    args = ["--geometry", scan["gpath"], "--input", scan["pdir"],
+            "--output", str(tmp_path)]
+    assert cli_main(args) == 1
+    assert "--backend torch" in capsys.readouterr().err
+    assert cli_main(args + ["--distributed"]) == 2
+    assert "--backend torch" in capsys.readouterr().err
+    assert not torch.distributed.is_initialized()
+    assert not any(n.endswith(".ddbvf") for n in os.listdir(tmp_path))
+
+
+def test_projection_cache_peak_is_the_cache(tmp_path):
+    """The host cache of a multi-block job keeps the stream's chunks as
+    they came: the job's traced host peak rises by at most
+    ``max_cache_bytes`` plus one chunk over the same job with no cache
+    (joining the chunks into one array doubled it), the stream is decoded
+    once, and the volume is byte for byte the same."""
+    import tracemalloc
+    from paris_tpu_torch.io import his as port_his
+    det = port_geometry.DetectorGeometry(32, 32, 2.0, 2.0, 0.0, 0.0,
+                                         500.0, 500.0, 1.5)
+    n_proj, chunk = 240, 16
+    frames = np.random.default_rng(11).uniform(
+        0, 1, (n_proj, 32, 32)).astype(np.float32)
+    pdir = tmp_path / "proj"
+    pdir.mkdir()
+    for i in range(0, n_proj, 8):
+        write_his(str(pdir / f"b{i:05d}.his"), frames[i:i + 8])
+    stream = frames.nbytes
+    peaks, volumes, decoded = {}, {}, {}
+    for cache in (False, False, True):
+        job = ReconstructionJob(
+            det=det, input_path=str(pdir), output_path=str(tmp_path),
+            prefix=f"c{int(cache)}", chunk_size=chunk, backend="torch",
+            accuracy="exact", block_dz=8, cache_projections=cache,
+            max_cache_bytes=stream)
+        before = port_his.DECODE_STATS["frames"]
+        tracemalloc.start()
+        try:
+            out = run_job(job)
+            peaks[cache] = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        decoded[cache] = port_his.DECODE_STATS["frames"] - before
+        with open(out, "rb") as f:
+            volumes[cache] = f.read()
+    n_blocks = port_geometry.plan_z_blocks(
+        port_geometry.derive_volume_geometry(det), block_dz=8).num
+    assert n_blocks > 1
+    assert decoded == {False: n_blocks * n_proj, True: n_proj}
+    assert volumes[True] == volumes[False]
+    assert peaks[True] - peaks[False] <= stream + chunk * 32 * 32 * 4, peaks

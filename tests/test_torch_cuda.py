@@ -354,3 +354,46 @@ def test_gather_wrappers_refuse_bad_inputs(cuda_device):
         gm2.gather_micro2_cuda("dyn_take", k0.long(), tab2, idx)
     assert (gm.gather_micro_cuda.launches,
             gm2.gather_micro2_cuda.launches) == before
+
+
+@pytest.mark.cuda
+def test_projector_on_card_matches_cpu(cuda_device):
+    """The torch projector on the card (its default device) against the
+    same function on the CPU, within the gates the projector is held to
+    against the JAX one (relative RMSE 1e-3, max 0.05 of max): sin, cos
+    and sqrt round differently on the two, which moves tangent-ray rims."""
+    from paris_tpu_torch.phantom import cone_beam_project_torch
+    det = OFFSET
+    vol = derive_volume_geometry(det)
+    scale = vol.dim_x * vol.l_vx_x / 2 * 0.9
+    ang = np.arange(8, dtype=np.float64) * 47.5
+    got = cone_beam_project_torch(det, ang, scale)
+    assert got.device == cuda_device and got.dtype == torch.float32
+    ref = cone_beam_project_torch(det, ang, scale, device="cpu").numpy()
+    got = got.cpu().numpy()
+    peak = np.abs(ref).max()
+    assert np.sqrt(np.mean((got.astype(np.float64) - ref) ** 2)) < 1e-3 * peak
+    assert np.abs(got - ref).max() < 0.05 * peak
+
+
+@pytest.mark.cuda
+def test_synthesizer_on_card_writes_the_projectors_frames(cuda_device,
+                                                          tmp_path):
+    """The synthesizer's card path (batch i+1 computed while batch i is
+    copied on a copy stream into pinned memory and written): every file
+    holds the projector's frames on the card, byte for byte."""
+    from paris_tpu_torch.benchmarks import synth_c5_3600 as synth
+    from paris_tpu_torch.io.his import read_his
+    from paris_tpu_torch.phantom import cone_beam_project_torch
+    det, n_proj = BASE, 36
+    out = synth.synthesize(str(tmp_path), det, n_proj)
+    assert out["frames_written"] == n_proj and out["card_ms_per_batch"] > 0
+    angles = np.arange(n_proj, dtype=np.float64) * det.delta_phi
+    scale = synth.phantom_scale(derive_volume_geometry(det))
+    pdir = tmp_path / synth.PROJ_SUBDIR
+    for i in range(0, n_proj, synth.BATCH):
+        want = cone_beam_project_torch(det, angles[i:i + synth.BATCH],
+                                       scale).cpu().numpy()
+        got = read_his(synth.his_path(str(pdir), i))
+        assert got.tobytes() == want.tobytes()
+    assert (pdir / synth.DONE_MARKER).read_text() == str(n_proj)

@@ -101,6 +101,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _port_modules()
     assert {"paris_tpu_torch.cli", "paris_tpu_torch.parallel.app",
             "paris_tpu_torch.benchmarks.gather_micro2",
+            "paris_tpu_torch.benchmarks.synth_c5_3600",
+            "paris_tpu_torch.benchmarks.golden_slab",
+            "paris_tpu_torch.benchmarks.full_scale_2048_3600",
+            "paris_tpu_torch.benchmarks.full_scale_2048",
             "paris_tpu_torch.golden", "paris_tpu_torch.phantom",
             "paris_tpu_torch.io.native"} <= set(mods)
     code = (

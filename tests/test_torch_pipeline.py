@@ -151,15 +151,24 @@ def test_step_staged_loop_equals_accumulate(scan64):
 
 
 def test_backend_resolution_without_card():
+    """Without a card, ``auto`` (the default everywhere) raises and names
+    the way to ask for the CPU; only ``torch`` runs there."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without a card")
-    assert resolve_backend("auto") == ("torch", torch.device("cpu"))
-    with pytest.raises(ValueError, match="cuda"):
-        resolve_backend("cuda")
+    assert resolve_backend("torch") == ("torch", torch.device("cpu"))
+    for backend in ("auto", "cuda"):
+        with pytest.raises(ValueError, match="--backend torch"):
+            resolve_backend(backend)
     det = DetectorGeometry(32, 32, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 3.0)
     with pytest.raises(ValueError, match="cuda"):
         Reconstructor(det, derive_volume_geometry(det), backend="cuda")
+    with pytest.raises(ValueError, match="--backend torch"):
+        Reconstructor(det, derive_volume_geometry(det))
+    with pytest.raises(ValueError, match="--backend torch"):
+        reconstruct(det, derive_volume_geometry(det),
+                    np.zeros((1, 32, 32), np.float32), [0.0])
     with pytest.raises(ValueError, match="unknown backend"):
         resolve_backend("pallas")
     with pytest.raises(ValueError, match="accuracy"):
-        Reconstructor(det, derive_volume_geometry(det), accuracy="medium")
+        Reconstructor(det, derive_volume_geometry(det), accuracy="medium",
+                      backend="torch")
