@@ -32,9 +32,15 @@ Phases (each raises on failure; the script then exits non-zero):
      of the traced windows.
   4. the gather micro-benchmarks K3a and K3b: every (mode, S) of
      gather_micro.main and every mode of gather_micro2.main, kernel
-     against plain version on the card, int32 equality in every block
-     slice; then both main()s, the entry points a user runs, with their
-     launch counts; ns per gather beside the plain version's.
+     against plain version on the card at the benchmark's inputs and at
+     two seeded ones (negative and large idx, k0 outside the table),
+     int32 equality in every tile; no kernel may spill, and the planners'
+     band plans must be the library's.  Prints per case the plan (rows,
+     threads, shared-memory bytes), resident blocks per SM and ptxas
+     registers; then drives both main()s, the entry points a user runs,
+     with their launch counts, and prints ns per gather beside the
+     earlier kernel's, the shared-memory floor and the plain version's.
+     A launch the card refuses raises: nothing else runs in its place.
   5. the distributed path and the detector-row band (K1c):
      a. the kernel at the two (512, 1024, 1024) config-3 blocks, fed only
         the block's band of detector rows (as the job feeds it), in exact
@@ -495,49 +501,109 @@ def _read_traces(trace_dir, n_blocks, chunks):
           f"(idle {1 - share:.1%})")
 
 
-def phase_micro():
-    import functools
+# ns per (64, 128) gather (the empty loop not subtracted) of the kernels
+# before the row-band redesign (one 1024-thread block per tile, tables read
+# from global memory through L1; git revision 99c42df), measured from that
+# revision's source by paris_tpu_torch/benchmarks/k3_compare.py on an NVIDIA
+# H100 80GB HBM3 at 700 W and 1980 MHz.
+EARLIER_NS = {
+    ("K3a", "empty_ns"): 0.892, ("K3a", "lane_128_ns"): 5.281,
+    ("K3a", "lane2_128_ns"): 8.747, ("K3a", "sublane_8_ns"): 4.671,
+    ("K3a", "sublane_16_ns"): 4.762, ("K3a", "sublane_32_ns"): 6.826,
+    ("K3a", "select_8_ns"): 10.920, ("K3a", "select_16_ns"): 18.696,
+    ("K3a", "select_24_ns"): 26.653, ("K3a", "select_32_ns"): 34.424,
+    ("K3b", "empty_ns"): 0.891, ("K3b", "static_read_ns"): 4.591,
+    ("K3b", "dyn_read_ns"): 4.787, ("K3b", "static_take_ns"): 4.465,
+    ("K3b", "dyn_take_ns"): 4.552, ("K3b", "dyn_take2_ns"): 12.837,
+    ("K3b", "chain_take2_ns"): 13.465, ("K3b", "chain_only_ns"): 2.142,
+}
+
+
+def phase_micro(logs):
     import torch
     from paris_tpu_torch.benchmarks import gather_micro as gm
     from paris_tpu_torch.benchmarks import gather_micro2 as gm2
+    from paris_tpu_torch.benchmarks.k3_compare import (ptxas_report,
+                                                       sm_clock_mhz,
+                                                       smem_floor_ns)
     dev = torch.device("cuda", 0)
-    tab, idx = gm.inputs(dev)
-    k0, tab2, idx2 = gm2.inputs(dev)
-    cases = {}              # (id, main() key) -> (kernel call, plain call)
+    clock = sm_clock_mhz()
+    regs = ptxas_report(logs["gather_micro"])
+    spilled = {k: v for k, v in regs.items() if v[1]}
+    if len(regs) != 18 or spilled:
+        raise AssertionError(f"gather kernels: {len(regs)} in ptxas's "
+                             f"report (18 expected), spilling: {spilled}")
+    lim, lim2 = gm.compiled_limits(), gm2.compiled_limits()
+    want = {(m, S): gm.plan_band(m, S).smem for m, S in lim["smem"]}
+    want2 = {m: gm2.plan_ring(m).smem for m in gm2.MODES}
+    if (lim["per"] != gm.PER or lim["smem"] != want
+            or (lim2["ring"], lim2["per"]) != (gm2.RING, gm2.PER)
+            or lim2["smem"] != want2):
+        raise AssertionError(f"the gather library's limits {lim}, {lim2} "
+                             "differ from the planners'")
+    # the benchmark's inputs, then two seeded ones: negative and large idx,
+    # random tables, k0 also outside [0, K)
+    data = {"K3a": [gm.inputs(dev)] + [gm.seeded_inputs(s, dev)
+                                       for s in (1, 2)],
+            "K3b": [gm2.inputs(dev)] + [gm2.seeded_inputs(s, dev)
+                                        for s in (1, 2)]}
+    cases = {}       # (id, main() key) -> (mode, S, plan, kernel, plain)
     for mode, S in [("empty", 32)] + list(gm.CASES):
         key = "empty_ns" if mode == "empty" else f"{mode}_{S}_ns"
         cases[("K3a", key)] = (
-            functools.partial(gm.gather_micro_cuda, mode, S, tab, idx),
-            functools.partial(gm.gather_micro_torch, mode, S, tab, idx))
+            mode, S, gm.plan_band(mode, S),
+            lambda t, mode=mode, S=S: gm.gather_micro_cuda(mode, S, *t),
+            lambda t, mode=mode, S=S: gm.gather_micro_torch(mode, S, *t))
     for mode in gm2.MODES:
         cases[("K3b", f"{mode}_ns")] = (
-            functools.partial(gm2.gather_micro2_cuda, mode, k0, tab2, idx2),
-            functools.partial(gm2.gather_micro2_torch, mode, k0, tab2, idx2))
-    print(f"gather micro-benchmarks: kernel ({gm.BLOCKS} block slices) "
-          "against plain version, gate int32 equality in every slice:")
+            mode, 0, gm2.plan_ring(mode),
+            lambda t, mode=mode: gm2.gather_micro2_cuda(mode, *t),
+            lambda t, mode=mode: gm2.gather_micro2_torch(mode, *t))
+    print(f"gather micro-benchmarks (max SM clock {clock:.0f} MHz): kernel "
+          f"({gm.BLOCKS} tiles) against plain version at the benchmark's "
+          "inputs and two seeded ones, gate int32 equality in every tile; "
+          "the band plan (the planner's, equal to the library's), ptxas "
+          "registers and resident blocks per SM:")
     max_err = {"K3a": 0, "K3b": 0}
-    plain_ns = {}
-    for (kid, key), (kern, plain) in cases.items():
-        want = plain()
-        got = kern()
-        torch.cuda.synchronize()
-        if got.shape != (gm.BLOCKS, 64, 128):
-            raise AssertionError(f"{kid} {key}: output {tuple(got.shape)}")
-        diff = (got.long() - want.long()).abs()
-        bad = int(diff.flatten(1).amax(1).gt(0).sum())
-        max_err[kid] = max(max_err[kid], int(diff.max()))
-        print(f"  {kid} {key[:-3]:<12} {bad} of {got.shape[0]} slices "
-              f"differ  {'ok' if bad == 0 else 'FAIL'}")
+    plain_ns, profile = {}, {}
+    for (kid, key), (mode, S, plan, kern, plain) in cases.items():
+        bad = 0
+        for tensors in data[kid]:
+            want_tile = plain(tensors)
+            got = kern(tensors)
+            torch.cuda.synchronize()
+            if got.shape != (gm.BLOCKS, 64, 128):
+                raise AssertionError(f"{kid} {key}: output "
+                                     f"{tuple(got.shape)}")
+            diff = (got.long() - want_tile.long()).abs()
+            bad += int(diff.flatten(1).amax(1).gt(0).sum())
+            max_err[kid] = max(max_err[kid], int(diff.max()))
+        if kid == "K3a":
+            resident = gm.blocks_per_sm(mode, S, plan, dev)
+            n_regs = regs[("K3a", gm.MODES.index(mode),
+                           S if mode in gm.WINDOWS else 1)]
+        else:
+            resident = gm2.blocks_per_sm(mode, plan, dev)
+            n_regs = regs[("K3b", gm2.MODES.index(mode), 0)]
+        profile[(kid, key)] = (
+            f"{plan.rows} rows, {plan.threads} threads, {plan.smem} B, "
+            f"{resident} blocks/SM, {n_regs[0]} registers")
+        print(f"  {kid} {key[:-3]:<12} {bad} of {3 * gm.BLOCKS} tiles "
+              f"differ; {profile[(kid, key)]} ({n_regs[1]} B spilled)  "
+              f"{'ok' if bad == 0 else 'FAIL'}")
         if bad:
             raise AssertionError(f"{kid} {key}: kernel differs from plain "
-                                 f"in {bad} block slices")
-        plain_ns[(kid, key)] = gm.time_launches(plain, n=3) * 1e6 / gm.REPS
+                                 f"in {bad} tiles")
+        first = data[kid][0]
+        plain_ns[(kid, key)] = gm.time_launches(
+            lambda: plain(first), n=3) * 1e6 / gm.REPS
     # ms per (64, 128) tile of REPS gathers, for the kernels line
     tile_ms = {}
     for kid, key in (("K3a", "lane_128_ns"), ("K3b", "dyn_take2_ns")):
-        kern, plain = cases[(kid, key)]
-        tile_ms[kid] = (gm.time_launches(kern) / gm.BLOCKS,
-                        gm.time_launches(plain, n=3))
+        kern, plain = cases[(kid, key)][3:]
+        first = data[kid][0]
+        tile_ms[kid] = (gm.time_launches(lambda: kern(first)) / gm.BLOCKS,
+                        gm.time_launches(lambda: plain(first), n=3))
 
     gm.gather_micro_cuda.launches = 0        # main path starts here
     gm2.gather_micro2_cuda.launches = 0
@@ -548,16 +614,20 @@ def phase_micro():
               "K3b": len(gm2.MODES) * (1 + gm.TIMED)}
     if launches != expect:
         raise AssertionError(f"main(): {launches} launches, expected {expect}")
-    print("  ns per (64, 128) gather: kernel from main(), the empty loop "
-          "subtracted; plain, 3 calls between CUDA events, not subtracted "
-          "(its time is the host's launch rate):")
+    print("  ns per (64, 128) gather, the empty loop not subtracted: the "
+          "kernel (from main()), the kernel before the row-band redesign "
+          "(EARLIER_NS), the mode's shared-memory floor at this clock "
+          "(k3_compare.smem_floor_ns: conflict-free), and the plain version "
+          "(3 calls between CUDA events: the host's launch rate):")
     for (kid, key), p_ns in plain_ns.items():
+        mode, S = cases[(kid, key)][:2]
         k_ns = ns[kid][key]
-        if kid == "K3b" and key != "empty_ns":   # gather_micro2 reports raw
-            k_ns -= ns[kid]["empty_ns"]
-        print(f"  {kid} {key[:-3]:<12} kernel {k_ns:9.3f}   plain "
-              f"{p_ns:11.1f}" + ("   (the empty loop itself)"
-                                 if key == "empty_ns" else ""))
+        if kid == "K3a" and key != "empty_ns":   # gather_micro subtracts it
+            k_ns += ns[kid]["empty_ns"]
+        floor, floor_by = smem_floor_ns(kid, mode, S, clock)
+        print(f"  {kid} {key[:-3]:<12} kernel {k_ns:7.3f}   earlier "
+              f"{EARLIER_NS[(kid, key)]:7.3f}   floor {floor:6.3f} "
+              f"({floor_by})   plain {p_ns:11.1f}")
     return launches, max_err, tile_ms
 
 
@@ -902,7 +972,7 @@ def main() -> int:
     max_abs_err, timings = phase_kernel(logs)
     with tempfile.TemporaryDirectory(prefix="paris_smoke_") as workdir:
         launches, _, job = phase_end_to_end(workdir)
-        micro_launches, micro_err, tile_ms = phase_micro()
+        micro_launches, micro_err, tile_ms = phase_micro(logs)
         max_abs_err = max(max_abs_err, phase_band(logs))
         launches += phase_distributed(workdir, job)
         phase_projector()

@@ -55,10 +55,20 @@ LIBRARIES: Dict[str, Dict[str, tuple]] = {
         "paris_bp_error_string": ([_i], ctypes.c_char_p),
     },
     "gather_micro": {
-        # device, stream, mode, S, tab, idx, out, blocks
-        "paris_gm1_launch": ([_i, _p, _i, _i, _p, _p, _p, _i], _i),
-        # device, stream, mode, k0, tab, idx, out, blocks
-        "paris_gm2_launch": ([_i, _p, _i, _p, _p, _p, _p, _i], _i),
+        # device, stream, mode, S, tab, idx, out, blocks, rows, smem
+        "paris_gm1_launch": ([_i, _p, _i, _i, _p, _p, _p, _i, _i, _i], _i),
+        # device, stream, mode, k0, tab, idx, out, blocks, rows, smem
+        "paris_gm2_launch": ([_i, _p, _i, _p, _p, _p, _p, _i, _i, _i], _i),
+        "paris_gm1_smem": ([_i, _i, _i], _i),        # mode, S, rows
+        "paris_gm2_smem": ([_i, _i], _i),            # mode, rows
+        "paris_gm1_per": ([_i], _i),                 # mode
+        "paris_gm1_max_threads": ([_i], _i),         # mode
+        "paris_gm2_per": ([], _i),
+        "paris_gm_ring": ([], _i),
+        # device, mode, S, rows, smem
+        "paris_gm1_blocks_per_sm": ([_i] * 5, _i),
+        # device, mode, rows, smem
+        "paris_gm2_blocks_per_sm": ([_i] * 4, _i),
         "paris_gm_error_string": ([_i], ctypes.c_char_p),
     },
 }

@@ -67,7 +67,9 @@ class ReconstructionJob:
     hbm_budget_bytes: Optional[int] = None   # device-memory budget per block
     cache_projections: Optional[bool] = None   # None = auto (multi-block)
     resume: bool = False
-    max_cache_bytes: int = 64 << 30
+    # cap of the host projection cache; None = the smaller of 64 GiB and
+    # half of the host's available memory (``resolve_cache_cap``)
+    max_cache_bytes: Optional[int] = None
     # one torch.profiler Chrome trace per block's reconstruct stage
     trace_dir: Optional[str] = None
     # Stop after computing this many NEW blocks (None = all); completed
@@ -291,20 +293,56 @@ def _source_chunks(job: ReconstructionJob, chunk_size: int,
                np.asarray([p.phi for p in plist], np.float32))
 
 
+MAX_CACHE_BYTES = 64 << 30     # the cache's cap on a host with memory to spare
+
+
+def _available_host_bytes() -> Optional[int]:
+    """Physical memory the host has available now (bytes); None where
+    ``os.sysconf`` does not know the names."""
+    try:
+        return (os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+    except (ValueError, OSError, AttributeError):
+        return None
+
+
+def resolve_cache_cap(job: ReconstructionJob) -> int:
+    """Bytes the job's host projection cache may hold: the job's
+    ``max_cache_bytes`` as given, else the smaller of ``MAX_CACHE_BYTES``
+    and half of the memory the host has available."""
+    if job.max_cache_bytes is not None:
+        return job.max_cache_bytes
+    available = _available_host_bytes()
+    if available is None:
+        return MAX_CACHE_BYTES
+    return min(MAX_CACHE_BYTES, available // 2)
+
+
 class _ProjectionCache:
     """The host copy of the projection stream that later blocks reuse, so
     a multi-block job reads the HIS directory once.  An explicit
     ``cache_projections=True`` always collects; None collects when a
-    later block will reuse it; a stream above ``max_cache_bytes`` is not
-    kept.  It keeps the stream's (chunk, angles) pairs as they came, and
-    never joins them into one array: the host holds at most
-    ``max_cache_bytes`` plus the chunk that crosses it."""
+    later block will reuse it; a stream above the cap
+    (``resolve_cache_cap``, taken once per job) is not kept.  It keeps the
+    stream's (chunk, angles) pairs as they came, and never joins them into
+    one array: the host holds at most the cap plus the chunk that crosses
+    it.  Logs the cap, and after the first pass the stream's bytes and
+    whether they were kept."""
 
     def __init__(self, job: ReconstructionJob, info: SubvolumeInfo):
         self.collect = job.cache_projections is True or (
             job.cache_projections is None and info.num > 1)
-        self.max_bytes = job.max_cache_bytes
+        self.max_bytes = resolve_cache_cap(job) if self.collect else 0
         self.pairs: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
+        if self.collect:
+            logger.info("projection cache: on, cap %.2f GiB (%s)",
+                        self.max_bytes / 2**30,
+                        "the job's max_cache_bytes"
+                        if job.max_cache_bytes is not None
+                        else "64 GiB or half of the host's available memory")
+        else:
+            logger.info("projection cache: off (%s)",
+                        "cache_projections=False"
+                        if job.cache_projections is False else "one block")
 
     def tap(self, chunks):
         """Pass ``chunks`` through, keeping them for later blocks while
@@ -318,9 +356,14 @@ class _ProjectionCache:
                 if nbytes > self.max_bytes:
                     self.collect = False
                     kept.clear()
+                    logger.info("projection cache: the stream passed the "
+                                "cap of %d bytes, later blocks stream it "
+                                "again", self.max_bytes)
             yield data, angs
         if self.collect and kept:
             self.pairs = kept
+            logger.info("projection cache: kept the stream's %d bytes for "
+                        "later blocks", nbytes)
 
 
 @contextlib.contextmanager

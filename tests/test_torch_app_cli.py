@@ -396,3 +396,110 @@ def test_projection_cache_peak_is_the_cache(tmp_path):
     assert decoded == {False: n_blocks * n_proj, True: n_proj}
     assert volumes[True] == volumes[False]
     assert peaks[True] - peaks[False] <= stream + chunk * 32 * 32 * 4, peaks
+
+
+# ------------------------------------------------ the host cache's cap
+
+def _cap_job(tmp_path, prefix, n_proj=48, **kw):
+    """A multi-block job (block_dz=8) over ``n_proj`` random 32 x 32
+    frames; returns (job, bytes of the stream, blocks)."""
+    det = port_geometry.DetectorGeometry(32, 32, 2.0, 2.0, 0.0, 0.0,
+                                         500.0, 500.0, 7.5)
+    pdir = tmp_path / "proj"
+    if not pdir.exists():
+        pdir.mkdir()
+        frames = np.random.default_rng(12).uniform(
+            0, 1, (n_proj, 32, 32)).astype(np.float32)
+        for i in range(0, n_proj, 8):
+            write_his(str(pdir / f"b{i:05d}.his"), frames[i:i + 8])
+    job = ReconstructionJob(
+        det=det, input_path=str(pdir), output_path=str(tmp_path),
+        prefix=prefix, chunk_size=16, backend="torch", accuracy="exact",
+        block_dz=8, **kw)
+    n_blocks = port_geometry.plan_z_blocks(
+        port_geometry.derive_volume_geometry(det), block_dz=8).num
+    assert n_blocks > 1
+    return job, n_proj * 32 * 32 * 4, n_blocks
+
+
+def _run_counting(job):
+    """(the job's ddbvf bytes, frames it decoded)."""
+    from paris_tpu_torch.io import his as port_his
+    before = port_his.DECODE_STATS["frames"]
+    out = run_job(job)
+    with open(out, "rb") as f:
+        return f.read(), port_his.DECODE_STATS["frames"] - before
+
+
+def test_cache_cap_follows_the_hosts_memory(tmp_path, monkeypatch, caplog):
+    """With little memory available the default cap falls below the
+    stream: a two-block job streams the scan once per block instead of
+    caching it, writes the same bytes as with the cache on, and logs what
+    it decided."""
+    from paris_tpu_torch import app
+    job, stream, n_blocks = _cap_job(tmp_path, "small")
+    assert job.max_cache_bytes is None
+    monkeypatch.setattr(app, "_available_host_bytes", lambda: stream)
+    with caplog.at_level(logging.INFO, logger="paris_tpu_torch.app"):
+        small, decoded_small = _run_counting(job)
+    assert decoded_small == n_blocks * 48
+    assert f"cap {stream // 2 / 2**30:.2f} GiB" in caplog.text
+    assert f"passed the cap of {stream // 2} bytes" in caplog.text
+    caplog.clear()
+    monkeypatch.setattr(app, "_available_host_bytes", lambda: 1 << 40)
+    with caplog.at_level(logging.INFO, logger="paris_tpu_torch.app"):
+        cached, decoded_cached = _run_counting(
+            dataclasses.replace(job, prefix="large"))
+    assert decoded_cached == 48
+    assert "projection cache: on, cap 64.00 GiB" in caplog.text
+    assert f"kept the stream's {stream} bytes" in caplog.text
+    assert small == cached
+
+
+def test_explicit_cache_cap_does_not_read_the_hosts_memory(tmp_path,
+                                                           monkeypatch,
+                                                           caplog):
+    from paris_tpu_torch import app
+
+    def probe():
+        raise AssertionError("the probe was consulted")
+    monkeypatch.setattr(app, "_available_host_bytes", probe)
+    job, stream, n_blocks = _cap_job(tmp_path, "fits", max_cache_bytes=0)
+    with caplog.at_level(logging.INFO, logger="paris_tpu_torch.app"):
+        streamed, decoded = _run_counting(job)
+        assert decoded == n_blocks * 48
+        assert "the job's max_cache_bytes" in caplog.text
+        cached, decoded = _run_counting(dataclasses.replace(
+            job, prefix="kept", max_cache_bytes=stream))
+        assert decoded == 48
+        assert cached == streamed
+        # a job that does not cache never asks either
+        _run_counting(dataclasses.replace(
+            job, prefix="off", max_cache_bytes=None,
+            cache_projections=False))
+    assert "projection cache: off (cache_projections=False)" in caplog.text
+
+
+@pytest.mark.parametrize("explicit,available,want", [
+    (None, None, 64 << 30),              # sysconf lacks the names
+    (None, 10 << 30, 5 << 30),           # half of what is available
+    (None, 1 << 40, 64 << 30),           # never above 64 GiB
+    (123, 10 << 30, 123),                # an explicit cap as given
+])
+def test_resolve_cache_cap(monkeypatch, explicit, available, want):
+    from paris_tpu_torch import app
+    monkeypatch.setattr(app, "_available_host_bytes", lambda: available)
+    job = ReconstructionJob(det=None, input_path="", output_path="",
+                            max_cache_bytes=explicit)
+    assert app.resolve_cache_cap(job) == want
+
+
+def test_available_host_bytes_probe(monkeypatch):
+    from paris_tpu_torch import app
+    got = app._available_host_bytes()
+    assert got is None or got > 0
+
+    def no_names(name):
+        raise ValueError("unrecognized configuration name")
+    monkeypatch.setattr(os, "sysconf", no_names)
+    assert app._available_host_bytes() is None

@@ -294,32 +294,113 @@ def test_world1_nccl_distributed_equals_reconstructor(cuda_device, tmp_path,
 
 # ------------------------------------------- gather micro-benchmarks K3a/K3b
 
+def k3a_inputs(which, dev):
+    """0: the benchmark's inputs; else the seeded ones (negative and
+    large idx, random tables)."""
+    return gm.inputs(dev) if which == 0 else gm.seeded_inputs(which, dev)
+
+
+def k3b_inputs(which, dev):
+    """As k3a_inputs; the seeded k0 also lies outside [0, K)."""
+    return gm2.inputs(dev) if which == 0 else gm2.seeded_inputs(which, dev)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])
 @pytest.mark.parametrize("mode,S", [("empty", 32)] + list(gm.CASES))
-def test_gather_micro_kernel_matches_plain_on_card(cuda_device, mode, S):
-    """Every block slice of the kernel's output equals the plain tile, as
-    int32."""
-    tab, idx = gm.inputs(cuda_device)
+def test_gather_micro_kernel_matches_plain_on_card(cuda_device, mode, S,
+                                                   which):
+    """Every tile of the kernel's output equals the plain tile, as int32,
+    for 1, 3 and 256 tiles a launch."""
+    tab, idx = k3a_inputs(which, cuda_device)
     plain = gm.gather_micro_torch(mode, S, tab, idx)
-    before = gm.gather_micro_cuda.launches
-    out = gm.gather_micro_cuda(mode, S, tab, idx)
-    torch.cuda.synchronize(cuda_device)
-    assert gm.gather_micro_cuda.launches == before + 1
-    assert out.shape == (gm.BLOCKS, 64, 128)
+    for blocks in (1, 3, gm.BLOCKS):
+        before = gm.gather_micro_cuda.launches
+        out = gm.gather_micro_cuda(mode, S, tab, idx, blocks=blocks)
+        torch.cuda.synchronize(cuda_device)
+        assert gm.gather_micro_cuda.launches == before + 1
+        assert out.shape == (blocks, 64, 128)
+        assert torch.equal(out, plain.expand_as(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("mode", gm2.MODES)
+def test_gather_micro2_kernel_matches_plain_on_card(cuda_device, mode, which):
+    k0, tab, idx = k3b_inputs(which, cuda_device)
+    plain = gm2.gather_micro2_torch(mode, k0, tab, idx)
+    for blocks in (1, 3, gm2.BLOCKS):
+        before = gm2.gather_micro2_cuda.launches
+        out = gm2.gather_micro2_cuda(mode, k0, tab, idx, blocks=blocks)
+        torch.cuda.synchronize(cuda_device)
+        assert gm2.gather_micro2_cuda.launches == before + 1
+        assert out.shape == (blocks, 64, 128)
+        assert torch.equal(out, plain.expand_as(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,S,rows", [
+    ("lane", 128, 4), ("lane", 128, 16), ("lane2", 128, 8),
+    ("sublane", 8, 32), ("sublane", 32, 16), ("select", 16, 8),
+    ("select", 24, 16)])
+def test_gather_micro_kernel_at_other_bands_on_card(cuda_device, mode, S,
+                                                    rows):
+    """The band is the planner's choice, not the kernel's: any band a
+    kernel can run gives the same tiles."""
+    tab, idx = gm.seeded_inputs(3, cuda_device)
+    out = gm.gather_micro_cuda(mode, S, tab, idx, blocks=5,
+                               plan=gm.plan_band(mode, S, rows=rows))
+    plain = gm.gather_micro_torch(mode, S, tab, idx)
     assert torch.equal(out, plain.expand_as(out))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", gm2.MODES)
-def test_gather_micro2_kernel_matches_plain_on_card(cuda_device, mode):
-    k0, tab, idx = gm2.inputs(cuda_device)
+@pytest.mark.parametrize("mode,rows", [("dyn_take2", 4), ("chain_take2", 16),
+                                       ("dyn_read", 32), ("static_take", 16)])
+def test_gather_micro2_kernel_at_other_bands_on_card(cuda_device, mode, rows):
+    k0, tab, idx = gm2.seeded_inputs(3, cuda_device)
+    out = gm2.gather_micro2_cuda(mode, k0, tab, idx, blocks=5,
+                                 plan=gm2.plan_ring(mode, rows=rows))
     plain = gm2.gather_micro2_torch(mode, k0, tab, idx)
-    before = gm2.gather_micro2_cuda.launches
-    out = gm2.gather_micro2_cuda(mode, k0, tab, idx)
-    torch.cuda.synchronize(cuda_device)
-    assert gm2.gather_micro2_cuda.launches == before + 1
-    assert out.shape == (gm2.BLOCKS, 64, 128)
     assert torch.equal(out, plain.expand_as(out))
+
+
+@pytest.mark.cuda
+def test_gather_library_limits_match_the_planners(cuda_device):
+    """The planners' elements per thread, ring stages and shared-memory
+    bytes are what the library was compiled with, and every planned
+    kernel is resident at least once on an SM."""
+    lim = gm.compiled_limits()
+    assert lim["per"] == gm.PER
+    assert lim["max_threads"] == {m: gm.MODE_MAX_THREADS.get(
+        m, gm.MAX_THREADS) for m in gm.MODES}
+    for (mode, S), smem in lim["smem"].items():
+        plan = gm.plan_band(mode, S)
+        assert smem == plan.smem
+        assert gm.blocks_per_sm(mode, S, plan, cuda_device) >= 1
+    lim2 = gm2.compiled_limits()
+    assert (lim2["ring"], lim2["per"]) == (gm2.RING, gm2.PER)
+    for mode, smem in lim2["smem"].items():
+        plan = gm2.plan_ring(mode)
+        assert smem == plan.smem
+        assert gm2.blocks_per_sm(mode, plan, cuda_device) >= 1
+
+
+@pytest.mark.cuda
+def test_gather_launch_the_card_refuses_raises(cuda_device):
+    """A plan the kernel does not need, and one whose shared memory the
+    card does not have, raise; no other kernel runs in their place."""
+    tab, idx = gm.inputs(cuda_device)
+    k0, tab2, _ = gm2.inputs(cuda_device)
+    before = (gm.gather_micro_cuda.launches, gm2.gather_micro2_cuda.launches)
+    for plan in (gm.BandPlan(8, 256, 16), gm.BandPlan(32, 1024, 262144)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            gm.gather_micro_cuda("lane2", 128, tab, idx, plan=plan)
+    for plan in (gm.BandPlan(8, 256, 0), gm.BandPlan(64, 2048, 1 << 20)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            gm2.gather_micro2_cuda("dyn_take2", k0, tab2, idx, plan=plan)
+    assert (gm.gather_micro_cuda.launches,
+            gm2.gather_micro2_cuda.launches) == before
 
 
 @pytest.mark.cuda

@@ -33,17 +33,24 @@ def ref():
     return load_reference("gather_micro")
 
 
+def torch_inputs(which):
+    """0: the benchmark's (tab, idx); 1, 2: numpy-seeded ones with negative
+    and large idx and random tables."""
+    return gm.inputs() if which == 0 else gm.seeded_inputs(which)
+
+
 @pytest.fixture(scope="module")
 def jax_tile(ref):
-    """(mode, S) -> the Pallas kernel's tile, computed once per module.
-    The BlockSpecs of gather_micro.py:86-96 with grid=(1,): every grid step
-    writes the same block, so one step computes the same tile."""
-    tab, idx = (jnp.asarray(t.numpy()) for t in gm.inputs())
-    tiles = {}
+    """(mode, S, which) -> the Pallas kernel's tile on the inputs
+    ``torch_inputs(which)``, computed once per module.  The BlockSpecs of
+    gather_micro.py:86-96 with grid=(1,): every grid step writes the same
+    block, so one step computes the same tile.  The kernel of a (mode, S)
+    is traced once for all inputs."""
+    kernels, tiles = {}, {}
 
-    def get(mode, S):
-        if (mode, S) not in tiles:
-            f = pl.pallas_call(
+    def get(mode, S, which=0):
+        if (mode, S) not in kernels:
+            kernels[(mode, S)] = jax.jit(pl.pallas_call(
                 ref.make_kernel(mode, S), grid=(1,),
                 in_specs=[pl.BlockSpec((gm.C, 128, 128), lambda i: (0, 0, 0),
                                        memory_space=pltpu.VMEM),
@@ -52,9 +59,12 @@ def jax_tile(ref):
                 out_specs=pl.BlockSpec((64, 128), lambda i: (0, 0),
                                        memory_space=pltpu.VMEM),
                 out_shape=jax.ShapeDtypeStruct((64, 128), jnp.int32),
-                interpret=True)
-            tiles[(mode, S)] = np.asarray(f(tab, idx))
-        return tiles[(mode, S)]
+                interpret=True))
+        if (mode, S, which) not in tiles:
+            tab, idx = (jnp.asarray(t.numpy()) for t in torch_inputs(which))
+            tiles[(mode, S, which)] = np.asarray(
+                kernels[(mode, S)](tab, idx))
+        return tiles[(mode, S, which)]
     return get
 
 
@@ -69,11 +79,20 @@ def test_constants_and_inputs_match_reference(ref):
     assert tab.dtype == idx.dtype == torch.int32
 
 
+@pytest.mark.parametrize("which", [0, 1, 2])
 @pytest.mark.parametrize("mode,S", [("empty", 32)] + list(gm.CASES))
-def test_plain_matches_pallas_interpret(jax_tile, mode, S):
-    got = gm.gather_micro_torch(mode, S, *gm.inputs())
+def test_plain_matches_pallas_interpret(jax_tile, mode, S, which):
+    got = gm.gather_micro_torch(mode, S, *torch_inputs(which))
     assert got.dtype == torch.int32 and got.shape == (64, 128)
-    np.testing.assert_array_equal(got.numpy(), jax_tile(mode, S))
+    np.testing.assert_array_equal(got.numpy(), jax_tile(mode, S, which))
+
+
+def test_seeded_inputs_are_negative_and_large():
+    tab, idx = gm.seeded_inputs(1)
+    assert tab.dtype == idx.dtype == torch.int32
+    assert tab.shape == (gm.C, 128, 128) and idx.shape == (64, 128)
+    assert int(idx.min()) < -2**29 and int(idx.max()) > 2**29
+    assert not torch.equal(idx, gm.seeded_inputs(2)[1])
 
 
 @pytest.mark.parametrize("S", [8, 16, 32])

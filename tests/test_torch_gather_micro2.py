@@ -20,17 +20,29 @@ def ref():
     return load_reference("gather_micro2")
 
 
+def torch_inputs(which):
+    """0: the benchmark's (k0, tab, idx); 1, 2: numpy-seeded ones with k0
+    also past the table, negative and large idx and random tables.  A
+    negative k0 is raised to 0 for both sides: XLA clamps it there, but
+    the Pallas interpreter indexes as numpy does and wraps it."""
+    if which == 0:
+        return gm2.inputs()
+    k0, tab, idx = gm2.seeded_inputs(which)
+    return k0.clamp(min=0), tab, idx
+
+
 @pytest.fixture(scope="module")
 def jax_tile(ref):
-    """mode -> the Pallas kernel's tile, computed once per module.  The
-    BlockSpecs of gather_micro2.py:82-93 with grid=(1,): every grid step
-    writes the same block, so one step computes the same tile."""
-    k0, tab, idx = (jnp.asarray(t.numpy()) for t in gm2.inputs())
-    tiles = {}
+    """(mode, which) -> the Pallas kernel's tile on the inputs
+    ``torch_inputs(which)``, computed once per module.  The BlockSpecs of
+    gather_micro2.py:82-93 with grid=(1,): every grid step writes the same
+    block, so one step computes the same tile.  The kernel of a mode is
+    traced once for all inputs."""
+    kernels, tiles = {}, {}
 
-    def get(mode):
-        if mode not in tiles:
-            f = pl.pallas_call(
+    def get(mode, which=0):
+        if mode not in kernels:
+            kernels[mode] = jax.jit(pl.pallas_call(
                 ref.make_kernel(mode), grid=(1,),
                 in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
                           pl.BlockSpec((gm2.C, gm2.K, 64, 128),
@@ -41,9 +53,12 @@ def jax_tile(ref):
                 out_specs=pl.BlockSpec((64, 128), lambda i: (0, 0),
                                        memory_space=pltpu.VMEM),
                 out_shape=jax.ShapeDtypeStruct((64, 128), jnp.int32),
-                interpret=True)
-            tiles[mode] = np.asarray(f(k0, tab, idx))
-        return tiles[mode]
+                interpret=True))
+        if (mode, which) not in tiles:
+            k0, tab, idx = (jnp.asarray(t.numpy())
+                            for t in torch_inputs(which))
+            tiles[(mode, which)] = np.asarray(kernels[mode](k0, tab, idx))
+        return tiles[(mode, which)]
     return get
 
 
@@ -60,11 +75,40 @@ def test_constants_and_inputs_match_reference(ref):
         idx.numpy(), np.random.default_rng(0).integers(0, 255, (64, 128)))
 
 
+@pytest.mark.parametrize("which", [0, 1, 2])
 @pytest.mark.parametrize("mode", gm2.MODES)
-def test_plain_matches_pallas_interpret(jax_tile, mode):
-    got = gm2.gather_micro2_torch(mode, *gm2.inputs())
+def test_plain_matches_pallas_interpret(jax_tile, mode, which):
+    got = gm2.gather_micro2_torch(mode, *torch_inputs(which))
     assert got.dtype == torch.int32 and got.shape == (64, 128)
-    np.testing.assert_array_equal(got.numpy(), jax_tile(mode))
+    np.testing.assert_array_equal(got.numpy(), jax_tile(mode, which))
+
+
+def test_seeded_k0_leaves_the_table():
+    k0, tab, idx = gm2.seeded_inputs(1)
+    assert k0.dtype == tab.dtype == idx.dtype == torch.int32
+    assert int(k0.min()) < 0 and int(k0.max()) >= gm2.K
+    assert int(torch_inputs(1)[0].max()) >= gm2.K
+    assert int(idx.min()) < -2**29 and int(idx.max()) > 2**29
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("mode", gm2.MODES)
+def test_rep_windows_are_the_plain_versions(mode, which):
+    """The windows the kernel copies per rep lie in the table, and are the
+    ones the plain version reads: a table with every other window
+    overwritten gives the same tile."""
+    k0, tab, idx = (gm2.inputs() if which == 0
+                    else gm2.seeded_inputs(which))
+    wins = gm2.rep_windows(mode, k0)
+    assert len(wins) == gm2.WINDOWS[mode]
+    reps = torch.arange(gm2.REPS)
+    kept = torch.full_like(tab, -7)
+    for w in wins:
+        assert w.shape == (gm2.REPS,)
+        assert 0 <= int(w.min()) and int(w.max()) < gm2.K
+        kept[reps % gm2.C, w.long()] = tab[reps % gm2.C, w.long()]
+    assert torch.equal(gm2.gather_micro2_torch(mode, k0, kept, idx),
+                       gm2.gather_micro2_torch(mode, k0, tab, idx))
 
 
 def test_chain_window_matches_numpy_f32():
