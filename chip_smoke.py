@@ -75,10 +75,42 @@ Phases (each raises on failure; the script then exits non-zero):
      Cut, for the time limit and the disk: 64 projections, not 3600;
      2 of the 6 blocks; fast mode only.  Needs ~13 GB of free disk in the
      temporary directory and fails, naming the bytes, without it.
+  7. the benchmark layer: the main() of each module a user runs from
+     paris_tpu_torch/benchmarks, on the card, each with K1's launches
+     counted from 0 just before it (every one must launch K1):
+     a. bench, fast and exact, at full width (a 1024^3 block, C = 24): the
+        JSON line, K1 alone with its share of the bound, the repeats'
+        spread; then K1 at bench's own launch (bench.setup's geometry,
+        block and filtered chunk) against its plain version, same gate as
+        phase 2 (these two launches are not counted);
+     b. run_configs, configs 1, 2, 4 and 5 (config 5: a world-1 NCCL
+        group); every RMSE gate is fatal;
+     c. config3_stream at 1024 over 360 frames, fast, its kernel-only
+        rate the bench fast value of 7a (PARIS_BENCH_KERNEL_GUPS): the RMSE
+        gate is fatal, the 2x rate gate is printed with its verdict;
+     d. dist_parity_ab (--quality 1) and dist_overlap_ab at --size 512
+        over one 360-frame scan written once: byte equality of the two
+        drivers' outputs is fatal, the ratio gates are printed;
+     e. weak_scaling_projection, with K1's rate measured on the card.
+     Cut, for the disk and the time limit: run_configs' config 3 is not
+     run (phase 3 runs its job: the 1024^3 volume in two 512-slice blocks
+     over 64 frames, at chunk 16 instead of 8; its two jobs would write
+     8 GiB more); the A/Bs run at 512, not 1024 (what they compare depends
+     on the block count, three at both sizes, not on the size), one pair
+     each; weak_scaling is not run (it measures gloo ranks on the CPU).
+     Before each step the phase reserves the bytes the step will write and
+     fails if the run's total would pass 40 GiB.
+
+Disk: after each phase the script prints the bytes that phase wrote and
+the run's total: the bytes this process passed to write and pwrite
+(/proc/self/io wchar; the chip machine's kernel keeps no write_bytes) plus
+the sizes of the files its child processes wrote (the compilers'
+libraries, the golden oracle's partial slabs).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launches (K1: the jobs of phases 3, 5b and
-6b, each counted from 0 just before it), errors, times and bounds (K1: ms per
+6b and the main()s of phase 7, each counted from 0 just before it), errors,
+times and bounds (K1: ms per
 launch at the fast (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile
 of 64 gathers, the kernel's from a launch of 256 tiles).  bound_ms is the
 larger of the bytes the function moves over 3.35 TB/s and its operations
@@ -112,6 +144,9 @@ C5_CHUNK = 8
 C5_BLOCK_DZ = 344
 C5_MAX_BLOCKS = 2        # of the 6 blocks: bounds the disk and the time
 C5_SLAB = (342, 4)       # straddles the seam between blocks 0 and 1
+DISK_LIMIT = 40 << 30    # bytes the whole run may write
+AB_SIZE = 512            # the driver A/Bs' detector (phase 7d)
+STREAM_NPROJ = 360       # config3_stream's and the A/Bs' scan
 
 
 def phase_device():
@@ -243,10 +278,7 @@ class _Compare:
               plan=None):
         import numpy as np
         import torch
-        from paris_tpu_torch.ops.backprojection_cuda import \
-            backproject_chunk_cuda
-        from paris_tpu_torch.ops.backprojection_torch import (
-            backproject_chunk_torch, make_bp_grid)
+        from paris_tpu_torch.ops.backprojection_torch import make_bp_grid
         dev = torch.device("cuda", 0)
         phi = np.deg2rad(ang).astype(np.float32)
         # fast mode: both sides read the same bf16-rounded projections
@@ -256,20 +288,35 @@ class _Compare:
         grid = make_bp_grid(det, vol)
         v0 = torch.as_tensor(vol0, device=dev) if isinstance(
             vol0, np.ndarray) else vol0
-        plain = backproject_chunk_torch(v0.clone(), p, s, c, grid, z_off, roi)
+        kern = self.compare(label, v0, p, s, c, grid, z_off, roi, plan=plan)
+        return p, s, c, grid, kern
+
+    def compare(self, label, v0, p, s, c, grid, z_off, roi, v_lo=0,
+                plan=None):
+        """Kernel and plain version on the same tensors on the card (rows
+        [v_lo, v_lo + p.shape[1]) of the detector); returns the kernel's
+        volume."""
+        import torch
+        from paris_tpu_torch.ops.backprojection_cuda import \
+            backproject_chunk_cuda
+        from paris_tpu_torch.ops.backprojection_torch import \
+            backproject_chunk_torch
+        plain = backproject_chunk_torch(v0.clone(), p, s, c, grid, z_off, roi,
+                                        v_lo)
         kern = backproject_chunk_cuda(v0.clone(), p, s, c, grid, z_off, roi,
-                                      plan=plan)
+                                      v_lo, plan=plan)
         torch.cuda.synchronize()
         err = float((kern - plain).abs().max())
         scale = float(plain.abs().max())
+        del plain
         self.max_abs_err = max(self.max_abs_err, err)
         ok = math.isfinite(err) and err <= GATE_KERNEL * scale
-        print(f"  {label:<34} {str(dtype).split('.')[-1]:<9} "
+        print(f"  {label:<34} {str(p.dtype).split('.')[-1]:<9} "
               f"max|err| {err:.3e}  max|plain| {scale:.3e}  "
               f"rel {err / max(scale, 1e-30):.2e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with plain: {label}")
-        return p, s, c, grid, kern
+        return kern
 
 
 def _time_ms(fn, n, warmup=1):
@@ -952,6 +999,156 @@ def phase_k1_config5(logs):
     return max_err
 
 
+class _Disk:
+    """Bytes the run has written: this process's bytes passed to write and
+    pwrite (/proc/self/io ``wchar``; the chip machine's kernel keeps no
+    ``write_bytes``, and ``wchar`` also counts the script's own output, a
+    few MB) plus the sizes of the files child processes wrote (``add``)."""
+
+    def __init__(self):
+        self.children = 0
+        self.start = self.mark = self._now()
+
+    def _now(self):
+        with open("/proc/self/io") as f:
+            own = next(int(line.split()[1]) for line in f
+                       if line.startswith("wchar:"))
+        return own + self.children
+
+    def add(self, nbytes):
+        """Count ``nbytes`` written by a child process."""
+        self.children += nbytes
+
+    def total(self):
+        return self._now() - self.start
+
+    def phase(self, label):
+        now = self._now()
+        print(f"disk: {label} wrote {(now - self.mark) / 2**30:.2f} GiB; "
+              f"{(now - self.start) / 2**30:.2f} GiB in this run")
+        self.mark = now
+
+    def reserve(self, nbytes, label):
+        if self.total() + nbytes > DISK_LIMIT:
+            raise RuntimeError(
+                f"{label} would write ~{nbytes / 2**30:.2f} GiB, taking the "
+                f"run's {self.total() / 2**30:.2f} GiB past "
+                f"{DISK_LIMIT / 2**30:.0f} GiB")
+
+
+def _file_bytes(pattern):
+    return sum(os.path.getsize(p) for p in glob.glob(pattern))
+
+
+def phase_benchmarks(workdir, disk):
+    """7: the benchmark layer's main()s on the card; returns K1's launches
+    in them and the largest |kernel - plain| at bench's block."""
+    from paris_tpu_torch.benchmarks import (bench, config3_stream,
+                                            dist_overlap_ab, dist_parity_ab,
+                                            run_configs,
+                                            weak_scaling_projection)
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    launches = 0
+
+    def drive(label, main, argv, nbytes, children=0):
+        nonlocal launches
+        disk.reserve(nbytes, label)
+        print(f"{label}:", flush=True)
+        backproject_chunk_cuda.launches = 0      # this path starts here
+        t0 = time.perf_counter()
+        res = main(argv + ["--out", os.path.join(workdir, "results.json")])
+        n = backproject_chunk_cuda.launches
+        if n == 0:
+            raise AssertionError(f"{label}: K1 was never launched")
+        launches += n
+        print(f"  {label}: {time.perf_counter() - t0:.1f} s, K1 launched "
+              f"{n} times", flush=True)
+        disk.add(children)
+        disk.phase(label)
+        return res
+
+    cmp = _Compare()
+    gups = {}
+    for acc in ("fast", "exact"):
+        res = drive(f"bench {acc}", bench.main,
+                    ["--size", "1024", "--chunk", "24", "--accuracy", acc], 0)
+        if (res["metric"] != "backprojection_gvoxel_updates_per_s_1024cube_"
+                f"cuda_{acc}" or not res["value"] > 0
+                or not 0 < res["k1_bound_share"] <= 1):
+            raise AssertionError(f"bench {acc}: {res}")
+        gups[acc] = res["value"]
+        # K1 at bench's own launch: its geometry, block and filtered chunk
+        rec, (chunk, sin, cos, qparams) = bench.setup(1024, 24, acc, "cuda")
+        filtered, v_lo = rec._filter_band(chunk, qparams, 0)
+        cmp.compare(f"bench {acc} {rec.block_shape} C=24", rec.init_block(),
+                    filtered, sin, cos, rec.grid, 0, (0, 0, 0), v_lo)
+        del rec, chunk, filtered
+
+    # the golden partials config 2's shards write, one shard per core
+    cfg2_golden = (os.cpu_count() or 1) * 4 * 256 ** 3
+    res = drive("run_configs 1,2,4,5", run_configs.main,
+                ["--configs", "1,2,4,5"], cfg2_golden + (64 << 20),
+                children=cfg2_golden)
+    for r in res["results"]:
+        print(f"  config {r['config']} {r['name']}: "
+              + ", ".join(f"{k} {r[k]}" for k in r if k.startswith(
+                  ("rel_rmse", "gupd", "pass", "mesh", "seconds"))))
+
+    os.environ["PARIS_BENCH_CFG3_NPROJ"] = str(STREAM_NPROJ)
+    os.environ.pop("PARIS_BENCH_CFG3_SCANDIR", None)
+    # the rate gate's kernel-only rate: bench fast, measured above
+    os.environ["PARIS_BENCH_KERNEL_GUPS"] = str(gups["fast"])
+    # the scan, the job's volume, the warm-up's block; the shards' partial
+    # 4-slice slabs
+    stream_golden = (os.cpu_count() or 1) * 4 * 4 * 1024 ** 2
+    res = drive("config3_stream", config3_stream.main,
+                ["--size", "1024", "--accuracy", "fast"],
+                STREAM_NPROJ * 4 * 1024 ** 2 + 4 * 1024 ** 3 + (256 << 20),
+                children=stream_golden)
+    os.environ.pop("PARIS_BENCH_KERNEL_GUPS")
+    print(f"  {res['n_proj']} frames: reconstruct "
+          f"{res['reconstruct_seconds']} s ({res['proj_per_s_stream']} proj/s,"
+          f" {res['gupd_per_s_stream_reconstruct']} Gupd/s), finalize+write "
+          f"{res['finalize_write_seconds']} s, end to end "
+          f"{res['end_to_end_seconds']} s; centre slab relative RMSE "
+          f"{res['rel_rmse_vs_golden_center_slab']:.2e} (pass_rmse "
+          f"{res['pass_rmse']}); kernel-only {res['kernel_only_gupd_per_s']} "
+          f"Gupd/s, rate gate (reconstruct >= kernel / 2) pass_rate "
+          f"{res['pass_rate']}")
+    if not res["pass_rmse"]:
+        raise AssertionError("config3_stream: the RMSE gate failed")
+
+    os.environ["PARIS_BENCH_CFG3_SCANDIR"] = os.path.join(workdir, "scan512")
+    ab_job = 4 * AB_SIZE ** 3
+    for label, main, argv in (
+            ("dist_parity_ab", dist_parity_ab.main,
+             ["--size", str(AB_SIZE), "--n-proj", str(STREAM_NPROJ),
+              "--quality", "1"]),
+            ("dist_overlap_ab", dist_overlap_ab.main,
+             ["--size", str(AB_SIZE), "--n-proj", str(STREAM_NPROJ)])):
+        res = drive(label, main, argv,
+                    STREAM_NPROJ * 4 * AB_SIZE ** 2 + 2 * ab_job + (64 << 20))
+        if not res["outputs_identical"]:
+            raise AssertionError(f"{label}: the drivers' outputs differ")
+        print(f"  {label}: outputs byte-identical; distributed / single "
+              f"{res['ratio_dist_over_single']} (gate {res['gate']}: pass "
+              f"{res['pass']})")
+    os.environ.pop("PARIS_BENCH_CFG3_SCANDIR")
+
+    res = drive("weak_scaling_projection", weak_scaling_projection.main, [],
+                0)
+    print(f"  K1 at {res['kernel']['block']} on {res['kernel']['band_rows']} "
+          f"rows: {res['kernel_gups_measured']:.1f} Gupd/s; gathered "
+          f"{res['gather_bytes_small_banded']} / "
+          f"{res['gather_bytes_small_full']} B banded / full at the small "
+          f"geometry (the model's count); at 32 cards over "
+          f"{res['nvlink_gbps_assumed']:g} GB/s NVLink: projected "
+          f"efficiency {res['projected'][-1]['projected_efficiency']}, "
+          f"crossover {res['crossover_gbps_for_80pct_at_32_chips']} GB/s "
+          f"(pass {res['pass']})")
+    return launches, cmp.max_abs_err
+
+
 def _same_bytes(a, b, block=64 << 20):
     if os.path.getsize(a) != os.path.getsize(b):
         return False
@@ -968,16 +1165,27 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_device()
     import torch
+    disk = _Disk()
     logs = phase_build()
+    from paris_tpu_torch import _build
+    disk.add(_file_bytes(os.path.join(_build.BUILD_DIR, "*")))   # compilers'
+    disk.phase("phase 1")
     max_abs_err, timings = phase_kernel(logs)
     with tempfile.TemporaryDirectory(prefix="paris_smoke_") as workdir:
         launches, _, job = phase_end_to_end(workdir)
+        disk.phase("phase 3")
         micro_launches, micro_err, tile_ms = phase_micro(logs)
         max_abs_err = max(max_abs_err, phase_band(logs))
         launches += phase_distributed(workdir, job)
+        disk.phase("phases 4-5")
         phase_projector()
         launches += phase_config5(workdir)
+        disk.add(_file_bytes(os.path.join(workdir, "c5", "golden_part_*")))
         max_abs_err = max(max_abs_err, phase_k1_config5(logs))
+        disk.phase("phase 6")
+        bench_launches, bench_err = phase_benchmarks(workdir, disk)
+        launches += bench_launches
+        max_abs_err = max(max_abs_err, bench_err)
     ms, plain_ms, bound, bound_by = timings[("fast", 64)]
     kernels = [{
         "name": "bp_kernel (fast: bf16 projections, f32 arithmetic)",

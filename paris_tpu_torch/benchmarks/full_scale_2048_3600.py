@@ -82,17 +82,22 @@ class _JobLogTap(logging.Handler):
 
 @contextlib.contextmanager
 def job_log_tap():
-    """Collect what ``run_job`` logs about its blocks while the body runs."""
-    log = logging.getLogger("paris_tpu_torch.app")
+    """Collect what ``run_job`` or ``run_job_distributed`` logs about its
+    blocks while the body runs (the distributed driver logs its stage
+    timings under its own logger, its blocks under the app's)."""
+    logs = [logging.getLogger(name) for name in
+            ("paris_tpu_torch.app", "paris_tpu_torch.parallel.app")]
     tap = _JobLogTap()
-    level = log.level
-    log.setLevel(logging.INFO)
-    log.addHandler(tap)
+    levels = [log.level for log in logs]
+    for log in logs:
+        log.setLevel(logging.INFO)
+        log.addHandler(tap)
     try:
         yield tap
     finally:
-        log.removeHandler(tap)
-        log.setLevel(level)
+        for log, level in zip(logs, levels):
+            log.removeHandler(tap)
+            log.setLevel(level)
 
 
 def stage_seconds(timings: str) -> Dict[str, float]:

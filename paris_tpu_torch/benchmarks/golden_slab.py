@@ -36,7 +36,7 @@ from .synth_c5_3600 import (BATCH, DONE_MARKER, N_PROJ, PROJ_SUBDIR, config5,
                             his_path)
 
 __all__ = ["parse_slabs", "partial_path", "final_path", "golden_partials",
-           "merge", "start_shards", "finish_shards", "main"]
+           "merge", "start_shards", "stop_shards", "finish_shards", "main"]
 
 Slabs = Sequence[Tuple[int, int]]
 
@@ -152,6 +152,13 @@ def start_shards(workdir: str, det: DetectorGeometry, slabs: Slabs,
         p.start()
         procs.append(p)
     return procs
+
+
+def stop_shards(procs: list) -> None:
+    """End the processes of ``start_shards`` (the caller failed)."""
+    for p in procs:
+        p.terminate()
+        p.join()
 
 
 def finish_shards(procs: list, workdir: str, slabs: Slabs,

@@ -478,3 +478,34 @@ def test_synthesizer_on_card_writes_the_projectors_frames(cuda_device,
         got = read_his(synth.his_path(str(pdir), i))
         assert got.tobytes() == want.tobytes()
     assert (pdir / synth.DONE_MARKER).read_text() == str(n_proj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accuracy", ["fast", "exact"])
+def test_bench_on_card(cuda_device, tmp_path, capsys, accuracy):
+    """The port's bench at a 256³ block on the card: the JAX bench's schema
+    last, and K1 alone within its bound."""
+    import json
+    from paris_tpu_torch.benchmarks import bench
+    res = bench.main(["--size", "256", "--accuracy", accuracy,
+                      "--out", str(tmp_path / "b.json")])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(last) == {"metric", "value", "unit", "vs_baseline"}
+    assert last["metric"] == ("backprojection_gvoxel_updates_per_s_256cube_"
+                              f"cuda_{accuracy}")
+    assert last["value"] > 0 and last["vs_baseline"] > 0
+    assert 0 < res["k1_bound_share"] <= 1
+    assert res["k1_registers"] and res["k1_blocks_per_sm"] >= 1
+    assert res["nvidia_smi"] and res["device"] == torch.cuda.get_device_name(
+        cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [1, 4])
+def test_run_configs_on_card(cuda_device, config):
+    """BASELINE configs 1 and 4 through the kernel (the default backend),
+    at the golden oracle's gate."""
+    from paris_tpu_torch.benchmarks import run_configs as rc
+    res = rc.CONFIGS[config]()
+    assert res["pass"] and 0 < res["rel_rmse_vs_golden"] <= 1e-3
+    assert res["device"] == torch.cuda.get_device_name(cuda_device)

@@ -105,6 +105,13 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "paris_tpu_torch.benchmarks.golden_slab",
             "paris_tpu_torch.benchmarks.full_scale_2048_3600",
             "paris_tpu_torch.benchmarks.full_scale_2048",
+            "paris_tpu_torch.benchmarks.bench",
+            "paris_tpu_torch.benchmarks.run_configs",
+            "paris_tpu_torch.benchmarks.config3_stream",
+            "paris_tpu_torch.benchmarks.dist_parity_ab",
+            "paris_tpu_torch.benchmarks.dist_overlap_ab",
+            "paris_tpu_torch.benchmarks.weak_scaling",
+            "paris_tpu_torch.benchmarks.weak_scaling_projection",
             "paris_tpu_torch.golden", "paris_tpu_torch.phantom",
             "paris_tpu_torch.io.native"} <= set(mods)
     code = (
