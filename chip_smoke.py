@@ -59,8 +59,10 @@ Phases (each raises on failure; the script then exits non-zero):
         against the float64 NumPy projector on 2 frames of the 2048^2
         detector; gates relative RMSE < 1e-3 and max|err| < 0.05 * max
         (tests/test_golden_fdk_e2e.py:91-103); ms per 8-frame batch;
-     b. the scan synthesized on the card as HIS files
-        (benchmarks.synth_c5_3600), then the job through cli.main with
+     b. the scan synthesized on the card as HIS files of uint16 counts
+        (benchmarks.synth_c5_3600 --number-type uint16: one scale for the
+        whole scan, rounded on the card; number type 4 on disk is
+        checked, the scale printed), then the job through cli.main with
         --backend cuda --accuracy fast --chunk-size 8 --block-dz 344
         --max-blocks 2: blocks 0 and 1 of the six, 11.5 GB written into
         the sparse 34.5 GB ddbvf.  The seam slab z 342..345 is held
@@ -73,7 +75,7 @@ Phases (each raises on failure; the script then exits non-zero):
         plain version (1e-4 * max|plain|), ms (CUDA events), registers,
         blocks per SM and share of the bound; and fast at C = 16.
      Cut, for the time limit and the disk: 64 projections, not 3600;
-     2 of the 6 blocks; fast mode only.  Needs ~13 GB of free disk in the
+     2 of the 6 blocks; fast mode only.  Needs ~12 GB of free disk in the
      temporary directory and fails, naming the bytes, without it.
   7. the benchmark layer: the main() of each module a user runs from
      paris_tpu_torch/benchmarks, on the card, each with K1's launches
@@ -144,6 +146,7 @@ C5_CHUNK = 8
 C5_BLOCK_DZ = 344
 C5_MAX_BLOCKS = 2        # of the 6 blocks: bounds the disk and the time
 C5_SLAB = (342, 4)       # straddles the seam between blocks 0 and 1
+C5_NUMBER_TYPE = "uint16"        # the scan as a flat-panel detector writes it
 DISK_LIMIT = 40 << 30    # bytes the whole run may write
 AB_SIZE = 512            # the driver A/Bs' detector (phase 7d)
 STREAM_NPROJ = 360       # config3_stream's and the A/Bs' scan
@@ -841,16 +844,18 @@ def phase_config5(workdir):
     from paris_tpu_torch.benchmarks import golden_slab
     from paris_tpu_torch.benchmarks.full_scale_2048_3600 import (
         job_log_tap, rel_rmse)
-    from paris_tpu_torch.benchmarks.synth_c5_3600 import synthesize
+    from paris_tpu_torch.benchmarks.synth_c5_3600 import (
+        his_path, scan_bytes, synthesize)
     from paris_tpu_torch.geometry import plan_z_blocks
     from paris_tpu_torch.io import ddbvf
     from paris_tpu_torch.io.geometry_file import dump_geometry_file
+    from paris_tpu_torch.io.his import read_his_header
     from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
     det, vol = _config5()
     info = plan_z_blocks(vol, block_dz=C5_BLOCK_DZ)
     blocks = info.blocks[:C5_MAX_BLOCKS]
     slice_bytes = 4 * vol.dim_x * vol.dim_y
-    need = (C5_N_PROJ * (4 * det.n_row * det.n_col + 32) + slice_bytes
+    need = (scan_bytes(det, C5_N_PROJ, C5_NUMBER_TYPE) + slice_bytes
             * sum(b.dim_z for b in blocks) + (256 << 20))
     free = shutil.disk_usage(workdir).free
     if free < need:
@@ -858,12 +863,20 @@ def phase_config5(workdir):
                            f" (the scan and {len(blocks)} blocks), {free} "
                            "are free")
     c5dir = os.path.join(workdir, "c5")
-    synth = synthesize(c5dir, det, C5_N_PROJ, subdir="proj")
+    synth = synthesize(c5dir, det, C5_N_PROJ, subdir="proj",
+                       number_type=C5_NUMBER_TYPE)
+    number_type = read_his_header(
+        his_path(os.path.join(c5dir, "proj"), 0)).number_type
+    if number_type != 4:
+        raise AssertionError(f"config 5: HIS number type {number_type} on "
+                             "disk, expected 4 (uint16)")
     print(f"config 5: {vol.shape_zyx} volume, {C5_N_PROJ} projections of "
           f"{det.n_col}x{det.n_row} synthesized on the card in "
           f"{synth['seconds']:.2f} s ({synth['card_ms_per_batch']:.3f} ms "
           f"per 8-frame batch on the card, {synth['write_seconds']:.2f} s "
-          f"of HIS writes)")
+          f"of HIS writes), HIS number type {number_type} (uint16 counts, "
+          f"{synth['map']['scale']:.6e} per count, offset "
+          f"{synth['map']['offset']:g}, {synth['map']['clipped']} clipped)")
     geo = os.path.join(c5dir, "scan.geo")
     dump_geometry_file(det, geo)
     shards = os.cpu_count() or 1

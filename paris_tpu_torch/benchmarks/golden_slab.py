@@ -3,8 +3,10 @@ counterpart of ``benchmarks/golden_slab.py``).
 
 Computes NumPy golden FDK slabs (``golden.golden_fdk_stream``) over a HIS
 scan directory without holding the scan in memory (3600 frames of 2048 x
-2048 are 60.4 GB): files are read in order, weighted and filtered once,
-and every requested z-slab accumulates in one pass.  It tails the
+2048 are 30.2 GB as uint16, 60.4 GB as float32): files are read in order
+(``read_his`` turns any number type into float32; a file is whole when
+its own header's frames are all there), weighted and filtered once, and
+every requested z-slab accumulates in one pass.  It tails the
 directory while the synthesizer is still writing (``SYNTH_DONE`` tells
 "not yet written" from "scan complete").
 
@@ -33,7 +35,7 @@ from ..geometry import DetectorGeometry, derive_volume_geometry
 from ..golden import golden_fdk_stream
 from ..io.his import read_his
 from .synth_c5_3600 import (BATCH, DONE_MARKER, N_PROJ, PROJ_SUBDIR, config5,
-                            his_path)
+                            his_path, whole_his)
 
 __all__ = ["parse_slabs", "partial_path", "final_path", "golden_partials",
            "merge", "start_shards", "stop_shards", "finish_shards", "main"]
@@ -77,23 +79,16 @@ def golden_partials(workdir: str, det: DetectorGeometry, slabs: Slabs,
     vol = derive_volume_geometry(det)
     pdir = os.path.join(workdir, subdir)
     done_marker = os.path.join(pdir, DONE_MARKER)
-    frame_bytes = 4 * det.n_row * det.n_col
     files = [(i, his_path(pdir, i)) for i in range(0, n_proj, BATCH)]
     mine = [(i, p) for k, (i, p) in enumerate(files) if k % W == w]
-
-    def present(path: str, n: int) -> bool:
-        try:
-            return os.path.getsize(path) >= n * frame_bytes
-        except OSError:
-            return False
 
     def wait_for(path: str, n: int) -> bool:
         # the synthesizer writes tmp + rename, so a file that exists is
         # complete; after SYNTH_DONE, one more look (the rename may have
         # raced the poll)
-        while not present(path, n):
+        while not whole_his(path, n):
             if os.path.exists(done_marker):
-                return present(path, n)
+                return whole_his(path, n)
             time.sleep(poll_s)
         return True
 

@@ -76,6 +76,19 @@ class HisHeader:
     def height(self) -> int:
         return self.bry - self.uly + 1
 
+    @property
+    def dtype(self) -> np.dtype:
+        """The pixels' number type as stored."""
+        return np.dtype(_NUMBER_TYPES[self.number_type])
+
+    @property
+    def file_bytes(self) -> int:
+        """Bytes of a whole file with this header: the file header, then
+        per frame its image header and pixels."""
+        return _FILE_HEADER_SIZE + self.frame_number * (
+            self.image_header_size + self.width * self.height
+            * self.dtype.itemsize)
+
 
 class HisFormatError(ValueError):
     pass

@@ -481,6 +481,32 @@ def test_synthesizer_on_card_writes_the_projectors_frames(cuda_device,
 
 
 @pytest.mark.cuda
+def test_u16_synthesizer_on_card_rounds_the_projectors_frames(cuda_device,
+                                                              tmp_path):
+    """The uint16 synthesis rounds on the card: every file is HIS number
+    type 4 and holds rint(frame / scale) of the projector's frames on the
+    card, and the map file records that scale."""
+    from paris_tpu_torch.benchmarks import synth_c5_3600 as synth
+    from paris_tpu_torch.io.his import read_his, read_his_header
+    from paris_tpu_torch.phantom import cone_beam_project_torch
+    det, n_proj = BASE, 20
+    out = synth.synthesize(str(tmp_path), det, n_proj, number_type="uint16")
+    pdir = str(tmp_path / synth.PROJ_SUBDIR)
+    q = synth.read_scan_map(pdir)["scale"]
+    assert out["map"]["clipped"] == 0 and out["card_ms_per_batch"] > 0
+    scale = synth.phantom_scale(derive_volume_geometry(det))
+    assert q == synth.count_scale(scale)
+    angles = np.arange(n_proj, dtype=np.float64) * det.delta_phi
+    for i in range(0, n_proj, synth.BATCH):
+        path = synth.his_path(pdir, i)
+        assert read_his_header(path).number_type == 4
+        frames = cone_beam_project_torch(det, angles[i:i + synth.BATCH],
+                                         scale)
+        want = torch.round(frames / q).cpu().numpy()
+        np.testing.assert_array_equal(read_his(path), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("accuracy", ["fast", "exact"])
 def test_bench_on_card(cuda_device, tmp_path, capsys, accuracy):
     """The port's bench at a 256³ block on the card: the JAX bench's schema
