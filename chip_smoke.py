@@ -20,6 +20,15 @@ Phases (each raises on failure; the script then exits non-zero):
      The kernel's global-memory taps (its plan where no tile ring fits):
      forced at every case, equal bit for bit to the staged kernel, and
      through the planner at two geometries no ring fits, same gate.
+  2b. the fast mode's u16 round trip on the card (pipeline's
+     quantize_u16_torch and u16_round_trip, PyTorch ops) against the
+     native quantizer (paris_quantize_u16) and quantize_chunk_u16, bit
+     for bit, codes and both qparams: 1024^2 frames at C=16 and 2048^2 at
+     C=8, u16 and f32 values, a constant and a zero frame, a full chunk
+     and a padded tail; the round trip against dequantize_chunk of the
+     native codes, bit for bit.  Its card ms per config-5 chunk (CUDA
+     events) beside its bound (bytes over 3.35 TB/s) and the host
+     quantizer's ms on the same chunk.
   3. the slice end to end: a 1024^3 Shepp-Logan scan of 64 projections
      written as HIS files, reconstructed by paris_tpu_torch.cli.main
      (--backend cuda, two 512-slice z-blocks) in fast and exact mode;
@@ -29,7 +38,11 @@ Phases (each raises on failure; the script then exits non-zero):
      job, fast mode with --trace-dir, must write one torch.profiler trace
      per block, each holding the block's kernel launches; from them it
      prints the summed kernel and memcpy time and the device busy share
-     of the traced windows.
+     of the traced windows.  Each job prints its projection cache's lines
+     and its ingest split per block (reconstruct, read, stage_wait,
+     step_enqueue, card_wait seconds; block 1 comes from the card cache),
+     and the u16 round trip must run once per chunk in fast mode, never
+     in exact mode.
   4. the gather micro-benchmarks K3a and K3b: every (mode, S) of
      gather_micro.main and every mode of gather_micro2.main, kernel
      against plain version on the card at the benchmark's inputs and at
@@ -52,7 +65,8 @@ Phases (each raises on failure; the script then exits non-zero):
      b. phase 3's fast job again through cli.main with --distributed: a
         world-1 NCCL group, real all-gathers, all_reduce and barriers.
         Same RMSE and launch gates; its ddbvf must equal phase 3's fast
-        job's byte for byte.  Job seconds beside the single-device job's.
+        job's byte for byte.  Job seconds beside the single-device job's,
+        and its ingest split.
   6. BASELINE config 5 at full width: a 2048 x 2048 detector and the
      2048 x 2048 x 2055 volume (34.5 GB):
      a. the analytic projector on the card (phantom.cone_beam_project_torch)
@@ -68,8 +82,10 @@ Phases (each raises on failure; the script then exits non-zero):
         the sparse 34.5 GB ddbvf.  The seam slab z 342..345 is held
         against the golden oracle over the same stored frames, computed
         by benchmarks.golden_slab in one process per core while the job
-        runs (relative RMSE <= 1e-3); K1's launches must equal 2 blocks x
-        8 chunks.  Prints the job's seconds, stage timers and band rows;
+        runs (relative RMSE <= 1e-3); K1's launches, and the u16 round
+        trip's, must equal 2 blocks x 8 chunks; the job must keep its
+        projection cache on the card and serve block 1 from it.  Prints
+        the job's seconds, stage timers, band rows and ingest split;
      c. K1 at one (344, 2048, 2048) block (block 1, on the job's band) in
         exact and fast mode with C = 8, the job's chunk: kernel against
         plain version (1e-4 * max|plain|), ms (CUDA events), registers,
@@ -110,18 +126,21 @@ the sizes of the files its child processes wrote (the compilers'
 libraries, the golden oracle's partial slabs).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it lists the kernels with their launches (K1: the jobs of phases 3, 5b and
-6b and the main()s of phase 7, each counted from 0 just before it), errors,
-times and bounds (K1: ms per
+it lists the kernels with their launches (K1 and the u16 round trip: the
+jobs of phases 3, 5b and 6b and the main()s of phase 7, each counted
+from 0 just before it), errors, times and bounds (K1: ms per
 launch at the fast (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile
-of 64 gathers, the kernel's from a launch of 256 tiles).  bound_ms is the
+of 64 gathers, the kernel's from a launch of 256 tiles; the u16 round
+trip: ms per config-5 chunk, its plain_ms the host's native quantizer,
+the JAX package's way; it is PyTorch ops on the card, not a hand
+kernel: the JAX package had no Pallas kernel for it).  bound_ms is the
 larger of the bytes the function moves over 3.35 TB/s and its operations
 over the card's peak rate for their type: K1's over 67 TFLOP/s (f32,
 outside the tensor cores), K3's 32-bit integer adds over 16.75 T/s (64
 int32 lanes an SM against 128 f32, so a quarter of the f32 FMA rate; the
 data sheet gives no int32 rate).
-No single PyTorch call computes any of the three functions, so
-library_ms is null.
+No single PyTorch call computes any of these functions, so library_ms
+is null.
 """
 
 from __future__ import annotations
@@ -399,6 +418,129 @@ def phase_kernel(logs):
     return cmp.max_abs_err, timings
 
 
+def phase_quantize():
+    """2b: the fast mode's u16 round trip on the card against the native
+    quantizer and quantize_chunk_u16; returns (max|card - host| of the
+    round trip, its timing at config 5's chunk)."""
+    import numpy as np
+    import torch
+    from paris_tpu_torch.benchmarks.k1_compare import HBM_BYTES_PER_S
+    from paris_tpu_torch.geometry import detector_row_band, plan_z_blocks
+    from paris_tpu_torch.io import native
+    from paris_tpu_torch.pipeline import (_u16_params, dequantize_chunk,
+                                          quantize_chunk_u16,
+                                          quantize_u16_torch, u16_round_trip)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(77)
+    max_err = 0.0
+    print("u16 round trip on the card against the native quantizer and "
+          "quantize_chunk_u16 (codes and qparams bit for bit):")
+    for size, C in ((1024, CHUNK), (2048, C5_CHUNK)):
+        for kind in ("u16", "f32"):
+            shape = (C, size, size)
+            frames = (rng.integers(0, 65536, shape).astype(np.float32)
+                      if kind == "u16" else
+                      rng.uniform(-300, 9000, shape).astype(np.float32))
+            frames[1] = 7.25                     # a constant frame
+            frames[2] = 0.0                      # a zero frame
+            for n in (C, C - 2):                 # and a padded tail
+                frames[n:] = 0
+                q = np.zeros(shape, np.uint16)
+                qp = np.zeros((C, 2), np.float32)
+                native.quantize_u16(np.ascontiguousarray(frames[:n]), q, qp)
+                pq, pqp = quantize_chunk_u16(
+                    np.ascontiguousarray(frames[:n]), C)
+                x = torch.from_numpy(frames).to(dev)
+                tq, tqp = quantize_u16_torch(x, n)
+                tq = tq.cpu().numpy()
+                tqp = tqp.cpu().numpy()
+                for rq, rqp, name in ((q, qp, "native"),
+                                      (pq, pqp, "quantize_chunk_u16")):
+                    if not (np.array_equal(tq.astype(np.uint16), rq)
+                            and np.array_equal(tqp.view(np.uint32),
+                                               rqp.view(np.uint32))):
+                        raise AssertionError(
+                            f"u16 quantization on the card differs from "
+                            f"{name} at {shape} {kind}, {n} frames")
+                got = u16_round_trip(x, torch.from_numpy(tqp).to(dev))
+                want = dequantize_chunk(
+                    torch.from_numpy(q.astype(np.float32)).to(dev),
+                    torch.from_numpy(qp).to(dev))
+                err = float((got - want).abs().max())
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    raise AssertionError(f"u16 round trip differs at {shape}"
+                                         f" {kind}, {n} frames: {err}")
+                max_err = max(max_err, err)
+                del x, got, want
+            print(f"  {shape} {kind} frames (a constant and a zero frame; "
+                  f"{C} and {C - 2} of {C} data): codes, qparams and the "
+                  "round trip bit for bit")
+
+    # time: the step's round trip on config 5's chunk and band
+    from paris_tpu_torch.pipeline import Reconstructor
+    det, vol = _config5()
+    info = plan_z_blocks(vol, block_dz=C5_BLOCK_DZ)
+    vp = max(hi - lo for lo, hi in (
+        detector_row_band(det, vol, b.z0, info.dim_z_padded)
+        for b in info.blocks))
+    v_lo = Reconstructor(det, vol, chunk_size=C5_CHUNK, backend="cuda",
+                         block_shape=(info.dim_z_padded, vol.dim_y,
+                                      vol.dim_x),
+                         v_band_width=vp)._v_band_lo(info.blocks[1].z0)
+    frames = rng.integers(0, 65536, (C5_CHUNK, det.n_col, det.n_row)
+                          ).astype(np.float32)
+    x = torch.from_numpy(frames).to(dev)
+    rows = slice(v_lo, v_lo + vp)
+
+    def card():
+        return u16_round_trip(x[:, rows], _u16_params(x, C5_CHUNK))
+    ms = _time_ms(card, n=20, warmup=2)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        quantize_chunk_u16(frames, C5_CHUNK)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+    nbytes = 4 * C5_CHUNK * det.n_col * det.n_row + 4 * C5_CHUNK * vp * \
+        det.n_row
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  config 5's chunk ({C5_CHUNK} frames of {det.n_col}x"
+          f"{det.n_row}, band {vp} rows): card {ms:.3f} ms per chunk "
+          f"(whole-frame qparams, the band's codes and dequantization), "
+          f"bound {bound:.3f} ms ({nbytes} bytes over 3.35 TB/s, "
+          f"{bound / ms:.1%} of it); the host's native quantizer "
+          f"{plain_ms:.1f} ms per chunk")
+    del x
+    return max_err, (ms, plain_ms, bound, "bytes")
+
+
+def _log_ingest(tap, label):
+    """Print the job's ingest split per block and its cache lines."""
+    for line in tap.cache:
+        print(f"  {label}: {line}")
+    for b in tap.ingest:
+        print(f"  {label}: block {b['block']} from the {b['from']}: "
+              f"reconstruct {b['reconstruct_s']:.3f} s, read "
+              f"{b['read_s']:.3f} s ({b['read_chunks']} chunks), stage_wait "
+              f"{b['stage_wait_s']:.3f} s, step_enqueue "
+              f"{b['step_enqueue_s']:.3f} s ({b['steps']} steps), card_wait "
+              f"{b['card_wait_s']:.3f} s")
+
+
+def _reset_counts():
+    """Zero the launch counts of the main path's wrappers."""
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.pipeline import u16_round_trip
+    backproject_chunk_cuda.launches = 0
+    u16_round_trip.launches = 0
+
+
+def _counts():
+    """(K1's launches, the u16 round trip's) since ``_reset_counts``."""
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.pipeline import u16_round_trip
+    return backproject_chunk_cuda.launches, u16_round_trip.launches
+
+
 def _gate_job(label, out, vol, golden):
     """The job's ddbvf: its dimensions, and the relative RMSE of the gate
     slabs against golden_fdk_stream.  Returns the RMSEs; raises on a
@@ -433,7 +575,7 @@ def phase_end_to_end(workdir):
     from paris_tpu_torch.io.his import write_his
     from paris_tpu_torch.phantom import cone_beam_project
     from paris_tpu_torch import cli
-    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import job_log_tap
 
     det, vol = _config3()
     angles = np.arange(N_PROJ, dtype=np.float32) * det.delta_phi
@@ -462,26 +604,31 @@ def phase_end_to_end(workdir):
     per_job = n_blocks * -(-N_PROJ // CHUNK)
     results = {}
     trace_dir = os.path.join(workdir, "traces")
-    backproject_chunk_cuda.launches = 0          # main path starts here
+    _reset_counts()                              # main path starts here
     for label, mode, traced in (("fast", "fast", False),
                                 ("exact", "exact", False),
                                 ("fast traced", "fast", True)):
-        before = backproject_chunk_cuda.launches
+        before, trips = _counts()
         name = "c3" + label.replace(" ", "_")
-        t0 = time.perf_counter()
-        rc = cli.main(["--geometry", geo, "--input", pdir,
-                       "--output", workdir, "--name", name,
-                       "--backend", "cuda", "--block-dz", str(BLOCK_DZ),
-                       "--chunk-size", str(CHUNK), "--accuracy", mode]
-                      + (["--trace-dir", trace_dir] if traced else []))
-        seconds = time.perf_counter() - t0
+        with job_log_tap() as tap:
+            t0 = time.perf_counter()
+            rc = cli.main(["--geometry", geo, "--input", pdir,
+                           "--output", workdir, "--name", name,
+                           "--backend", "cuda", "--block-dz", str(BLOCK_DZ),
+                           "--chunk-size", str(CHUNK), "--accuracy", mode]
+                          + (["--trace-dir", trace_dir] if traced else []))
+            seconds = time.perf_counter() - t0
         if rc != 0:
             raise RuntimeError(f"cli.main ({label}) exited {rc}")
-        launched = backproject_chunk_cuda.launches - before
+        launched = _counts()[0] - before
         if launched != per_job:
             raise AssertionError(
                 f"{label}: kernel launched {launched} times, expected "
                 f"{n_blocks} blocks x {per_job // n_blocks} chunks")
+        trips = _counts()[1] - trips
+        if trips != (per_job if mode == "fast" else 0):
+            raise AssertionError(f"{label}: the u16 round trip ran {trips} "
+                                 "times on the card")
         out = os.path.join(workdir, f"{name}.ddbvf")
         rmse = _gate_job(label, out, vol, golden)
         if label != "fast":              # phase 5b compares with "fast"
@@ -490,8 +637,9 @@ def phase_end_to_end(workdir):
         print(f"  {label}: {seconds:.2f} s per job ({gups:.2f} Gupd/s end to "
               f"end), {n_blocks} blocks, {launched} launches, relative RMSE "
               + ", ".join(f"{k} {v:.2e}" for k, v in rmse.items()))
+        _log_ingest(tap, label)
         results[label] = seconds
-    launches = backproject_chunk_cuda.launches
+    launches = _counts()
     _read_traces(trace_dir, n_blocks, per_job // n_blocks)
     job = dict(geo=geo, pdir=pdir, golden=golden, per_job=per_job,
                fast_out=os.path.join(workdir, "c3fast.ddbvf"),
@@ -517,7 +665,8 @@ def _read_traces(trace_dir, n_blocks, chunks):
     if len(files) != n_blocks:
         raise AssertionError(f"traced job wrote {len(files)} trace files, "
                              f"expected one per block ({n_blocks})")
-    sums = dict.fromkeys(("window", "kernel", "HtoD", "DtoH", "busy"), 0.0)
+    sums = dict.fromkeys(("window", "kernel", "HtoD", "DtoH", "busy", "h2d"),
+                         0.0)
     for path in files:
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"]
@@ -537,14 +686,20 @@ def _read_traces(trace_dir, n_blocks, chunks):
             "HtoD": sum(e["dur"] for e in device if "HtoD" in e["name"]),
             "DtoH": sum(e["dur"] for e in device if "DtoH" in e["name"]),
             "busy": _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in device]),
+            "h2d": sum(e["name"] == "h2d" for e in events),
         }
         print(f"  trace {os.path.basename(path)}: "
-              + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in us.items())
-              + f", device busy {us['busy'] / us['window']:.1%}")
+              + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in us.items()
+                          if k != "h2d")
+              + f", device busy {us['busy'] / us['window']:.1%}, "
+              f"{us['h2d']} ring copies named h2d")
         for k in sums:
             sums[k] += us[k]
+    if not sums["h2d"]:
+        raise AssertionError("no ring copy named h2d in the traces")
     share = sums["busy"] / sums["window"]
-    print(f"  traced job, {n_blocks} reconstruct windows of "
+    print(f"  traced job, {sums['h2d']:.0f} ring copies named h2d; "
+          f"{n_blocks} reconstruct windows of "
           f"{sums['window'] / 1e6:.3f} s: kernels {sums['kernel'] / 1e3:.1f} "
           f"ms, memcpy HtoD {sums['HtoD'] / 1e3:.1f} ms, DtoH "
           f"{sums['DtoH'] / 1e3:.1f} ms; device busy share {share:.1%} "
@@ -754,21 +909,24 @@ def phase_distributed(workdir, job):
     """5b: phase 3's fast job over a world-1 NCCL group; returns the
     kernel's launches in that job."""
     from paris_tpu_torch import cli
-    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import job_log_tap
     det, vol = _config3()
-    backproject_chunk_cuda.launches = 0          # this path starts here
-    t0 = time.perf_counter()
-    rc = cli.main(["--geometry", job["geo"], "--input", job["pdir"],
-                   "--output", workdir, "--name", "c3dist", "--backend",
-                   "cuda", "--block-dz", str(BLOCK_DZ), "--chunk-size",
-                   str(CHUNK), "--accuracy", "fast", "--distributed"])
-    seconds = time.perf_counter() - t0
-    launched = backproject_chunk_cuda.launches
+    _reset_counts()                              # this path starts here
+    with job_log_tap() as tap:
+        t0 = time.perf_counter()
+        rc = cli.main(["--geometry", job["geo"], "--input", job["pdir"],
+                       "--output", workdir, "--name", "c3dist", "--backend",
+                       "cuda", "--block-dz", str(BLOCK_DZ), "--chunk-size",
+                       str(CHUNK), "--accuracy", "fast", "--distributed"])
+        seconds = time.perf_counter() - t0
+    launched, trips = _counts()
     if rc != 0:
         raise RuntimeError(f"cli.main (--distributed) exited {rc}")
-    if launched != job["per_job"]:
+    if launched != job["per_job"] or trips != job["per_job"]:
         raise AssertionError(f"--distributed: kernel launched {launched} "
-                             f"times, expected {job['per_job']}")
+                             f"times, the u16 round trip {trips}, expected "
+                             f"{job['per_job']}")
+    _log_ingest(tap, "--distributed")
     out = os.path.join(workdir, "c3dist.ddbvf")
     rmse = _gate_job("--distributed", out, vol, job["golden"])
     same = _same_bytes(out, job["fast_out"])
@@ -780,7 +938,7 @@ def phase_distributed(workdir, job):
     if not same:
         raise AssertionError("--distributed ddbvf differs from the "
                              "single-device fast job's")
-    return launched
+    return launched, trips
 
 
 def _gather_tile_bound_ms(table_bytes):
@@ -850,7 +1008,6 @@ def phase_config5(workdir):
     from paris_tpu_torch.io import ddbvf
     from paris_tpu_torch.io.geometry_file import dump_geometry_file
     from paris_tpu_torch.io.his import read_his_header
-    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
     det, vol = _config5()
     info = plan_z_blocks(vol, block_dz=C5_BLOCK_DZ)
     blocks = info.blocks[:C5_MAX_BLOCKS]
@@ -884,7 +1041,7 @@ def phase_config5(workdir):
     procs = golden_slab.start_shards(c5dir, det, [C5_SLAB], C5_N_PROJ,
                                      shards, subdir="proj")
     try:
-        backproject_chunk_cuda.launches = 0          # this path starts here
+        _reset_counts()                              # this path starts here
         with job_log_tap() as tap:
             t0 = time.perf_counter()
             rc = cli.main(["--geometry", geo, "--input",
@@ -894,7 +1051,7 @@ def phase_config5(workdir):
                            str(C5_CHUNK), "--block-dz", str(C5_BLOCK_DZ),
                            "--max-blocks", str(C5_MAX_BLOCKS)])
             seconds = time.perf_counter() - t0
-        launched = backproject_chunk_cuda.launches
+        launched, trips = _counts()
     except BaseException:
         for p in procs:
             p.terminate()
@@ -906,10 +1063,17 @@ def phase_config5(workdir):
     if rc != 0:
         raise RuntimeError(f"cli.main (config 5) exited {rc}")
     per_job = len(blocks) * -(-C5_N_PROJ // C5_CHUNK)
-    if launched != per_job:
+    if launched != per_job or trips != per_job:
         raise AssertionError(
-            f"config 5: kernel launched {launched} times, expected "
-            f"{len(blocks)} blocks x {per_job // len(blocks)} chunks")
+            f"config 5: kernel launched {launched} times, the u16 round "
+            f"trip {trips}, expected {len(blocks)} blocks x "
+            f"{per_job // len(blocks)} chunks")
+    _log_ingest(tap, "config 5")
+    if not any(line.startswith("projection cache: on the card")
+               for line in tap.cache) or [b["from"] for b in tap.ingest] != [
+                   "HIS files"] + ["card cache"] * (len(blocks) - 1):
+        raise AssertionError("config 5: later blocks were not served from "
+                             f"the card cache: {tap.cache}, {tap.ingest}")
     out = os.path.join(c5dir, "c5.ddbvf")
     if ddbvf.open_meta(out) != (vol.dim_x, vol.dim_y, vol.dim_z):
         raise AssertionError("config 5: wrong ddbvf dimensions")
@@ -942,7 +1106,7 @@ def phase_config5(workdir):
         raise AssertionError(f"config 5: RMSE gate {GATE_RMSE:g} failed at "
                              f"{bad}")
     os.remove(out)
-    return launched
+    return launched, trips
 
 
 def phase_k1_config5(logs):
@@ -1060,22 +1224,21 @@ def phase_benchmarks(workdir, disk):
                                             dist_overlap_ab, dist_parity_ab,
                                             run_configs,
                                             weak_scaling_projection)
-    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
-    launches = 0
+    launches = [0, 0]
 
     def drive(label, main, argv, nbytes, children=0):
-        nonlocal launches
         disk.reserve(nbytes, label)
         print(f"{label}:", flush=True)
-        backproject_chunk_cuda.launches = 0      # this path starts here
+        _reset_counts()                          # this path starts here
         t0 = time.perf_counter()
         res = main(argv + ["--out", os.path.join(workdir, "results.json")])
-        n = backproject_chunk_cuda.launches
+        n, trips = _counts()
         if n == 0:
             raise AssertionError(f"{label}: K1 was never launched")
-        launches += n
+        launches[0] += n
+        launches[1] += trips
         print(f"  {label}: {time.perf_counter() - t0:.1f} s, K1 launched "
-              f"{n} times", flush=True)
+              f"{n} times, the u16 round trip {trips}", flush=True)
         disk.add(children)
         disk.phase(label)
         return res
@@ -1091,8 +1254,9 @@ def phase_benchmarks(workdir, disk):
             raise AssertionError(f"bench {acc}: {res}")
         gups[acc] = res["value"]
         # K1 at bench's own launch: its geometry, block and filtered chunk
-        rec, (chunk, sin, cos, qparams) = bench.setup(1024, 24, acc, "cuda")
-        filtered, v_lo = rec._filter_band(chunk, qparams, 0)
+        rec, staged = bench.setup(1024, 24, acc, "cuda")
+        chunk, sin, cos, n = staged[:4]
+        filtered, v_lo = rec._filter_band(chunk, n, 0)
         cmp.compare(f"bench {acc} {rec.block_shape} C=24", rec.init_block(),
                     filtered, sin, cos, rec.grid, 0, (0, 0, 0), v_lo)
         del rec, chunk, filtered
@@ -1128,6 +1292,12 @@ def phase_benchmarks(workdir, disk):
           f"{res['pass_rmse']}); kernel-only {res['kernel_only_gupd_per_s']} "
           f"Gupd/s, rate gate (reconstruct >= kernel / 2) pass_rate "
           f"{res['pass_rate']}")
+    for b in res["ingest_split"]:
+        print(f"  config3_stream: block {b['block']} from the {b['from']}: "
+              f"reconstruct {b['reconstruct_s']:.3f} s, read "
+              f"{b['read_s']:.3f} s, stage_wait {b['stage_wait_s']:.3f} s, "
+              f"step_enqueue {b['step_enqueue_s']:.3f} s, card_wait "
+              f"{b['card_wait_s']:.3f} s")
     if not res["pass_rmse"]:
         raise AssertionError("config3_stream: the RMSE gate failed")
 
@@ -1184,20 +1354,23 @@ def main() -> int:
     disk.add(_file_bytes(os.path.join(_build.BUILD_DIR, "*")))   # compilers'
     disk.phase("phase 1")
     max_abs_err, timings = phase_kernel(logs)
+    trip_err, trip_ms = phase_quantize()
     with tempfile.TemporaryDirectory(prefix="paris_smoke_") as workdir:
         launches, _, job = phase_end_to_end(workdir)
+        launches = list(launches)
         disk.phase("phase 3")
         micro_launches, micro_err, tile_ms = phase_micro(logs)
         max_abs_err = max(max_abs_err, phase_band(logs))
-        launches += phase_distributed(workdir, job)
+        launches = [a + b for a, b in zip(launches,
+                                          phase_distributed(workdir, job))]
         disk.phase("phases 4-5")
         phase_projector()
-        launches += phase_config5(workdir)
+        launches = [a + b for a, b in zip(launches, phase_config5(workdir))]
         disk.add(_file_bytes(os.path.join(workdir, "c5", "golden_part_*")))
         max_abs_err = max(max_abs_err, phase_k1_config5(logs))
         disk.phase("phase 6")
         bench_launches, bench_err = phase_benchmarks(workdir, disk)
-        launches += bench_launches
+        launches = [a + b for a, b in zip(launches, bench_launches)]
         max_abs_err = max(max_abs_err, bench_err)
     ms, plain_ms, bound, bound_by = timings[("fast", 64)]
     kernels = [{
@@ -1205,7 +1378,7 @@ def main() -> int:
         "route": "cuda",
         "source": "paris_tpu_torch/csrc/backproject.cu",
         "replaces": "paris_tpu/ops/backprojection_pallas.py:921",
-        "launches": launches,
+        "launches": launches[0],
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1232,6 +1405,23 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,
         })
+    ms, plain_ms, bound, bound_by = trip_ms
+    kernels.append({
+        "name": "u16_round_trip (fast mode's per-frame u16 quantization "
+                "and dequantization on the card; PyTorch ops, no hand "
+                "kernel: the JAX package ran it on its host; ms per config-5 "
+                "chunk, plain_ms the host's native quantizer)",
+        "route": "cuda",
+        "source": "paris_tpu_torch/pipeline.py",
+        "replaces": "paris_tpu/pipeline.py:51",
+        "launches": launches[1],
+        "max_abs_err": trip_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

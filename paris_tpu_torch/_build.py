@@ -3,9 +3,10 @@
 Each CUDA source (``LIBRARIES``) is compiled with ``nvcc`` for Hopper
 (``sm_90a``) into a library of its own with a plain C interface, bound
 with ``ctypes`` — no PyTorch headers, so a build takes seconds.  The host
-I/O library (``HOST_LIBRARIES``: ``csrc/paris_io.cpp``, HIS decode, ddbvf
-block I/O and u16 quantization) is compiled the same way with the host
-C++ compiler (``c++``), so a machine without ``nvcc`` builds it too.  The
+libraries (``HOST_LIBRARIES``: ``csrc/paris_io.cpp``, HIS decode, ddbvf
+block I/O and u16 quantization; ``csrc/paris_ingest.cpp``, the raw HIS
+reader of the ingest stage) are compiled the same way with the host C++
+compiler (``c++``), so a machine without ``nvcc`` builds them too.  The
 libraries go to ``paris_tpu_torch/_build/`` (listed in ``.gitignore``),
 each named by a hash of its source and the flags: the first use after a
 change of either rebuilds it.  ``build`` starts one compiler per source,
@@ -85,6 +86,15 @@ HOST_LIBRARIES: Dict[str, Dict[str, tuple]] = {
         "paris_ddbvf_read": ([_s, _p, _u32, _u32], _i),   # path, out, first, count
         # in, n_frames, frame_elems, out, qparams, n_threads
         "paris_quantize_u16": ([_p, _i64, _i64, _p, _p, _i], _i),
+    },
+    # the ingest stage's raw HIS reader (csrc/paris_io.cpp stays a copy of
+    # native/paris_io.cpp)
+    "paris_ingest": {
+        "paris_his_read_raw": ([_s, _p, _i64], _i),  # path, out, capacity B
+        # path, number type, image header, px, first, count, out,
+        # capacity bytes, threads
+        "paris_his_read_frames": ([_s, _i, _i, _i64, _i, _i, _p, _i64, _i],
+                                  _i),
     },
 }
 

@@ -6,9 +6,16 @@
     extent, padded to one uniform shape;
   * each step weights, filters and backprojects only the detector rows
     the widest block samples (``detector_row_band``);
-  * per block: stream the HIS projections (or reuse the host cache of a
-    previous block) through the reconstructor, then write the block at its
-    global z offset and record it in the sink's resume manifest;
+  * per block: stream the HIS projections through the reconstructor,
+    each chunk read raw into a pinned staging slot on a worker thread and
+    copied to the card on a copy stream, then write the block at its
+    global z offset and record it in the sink's resume manifest.  The
+    HIS headers are read once per job (one file table);
+  * the projection cache of a multi-block job keeps the staged raw
+    stream for later blocks where ``plan_job`` decides, once: on the card
+    when it fits beside the plan's accumulators (later blocks then do no
+    host or copy work), else on the host under ``resolve_cache_cap``
+    (staged again through the ring), else nowhere (read again);
   * block k's device-to-host copy and ddbvf write run on a writer thread,
     on a copy stream of their own, while block k+1 reconstructs — when two
     accumulators fit the card's free memory.  Unless the extent is forced,
@@ -17,16 +24,17 @@
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from .exceptions import (
@@ -39,12 +47,14 @@ from .geometry import (
 from .io.sink import VolumeSink
 from .io.source import ProjectionSource
 from .utils.logging import StageTimers, fmt_duration
-from .pipeline import Reconstructor, resolve_backend, stage_stream
+from .pipeline import (Reconstructor, _STAGE_WORKERS, resolve_backend,
+                       stage_stream)
 from .utils.profiling import ThroughputMeter, trace
 
 logger = logging.getLogger("paris_tpu_torch.app")
 
-__all__ = ["ReconstructionJob", "JobPlan", "plan_job", "run_job"]
+__all__ = ["ReconstructionJob", "JobPlan", "plan_job", "run_job",
+           "cache_placement"]
 
 
 @dataclasses.dataclass
@@ -171,17 +181,112 @@ class JobPlan:
     ``overlap``, whether block k drains to disk while block k+1
     reconstructs; ``hbm_budget``, the per-block device-memory budget the
     plan was cut to (None: no budget, one block unless the extent is
-    forced)."""
+    forced); ``cache``, where the projection cache keeps the staged stream
+    for later blocks ("card", "host" or "off"), and ``cache_bytes`` its
+    bytes there."""
     info: SubvolumeInfo
     overlap: bool
     hbm_budget: Optional[int]
+    cache: str = "off"
+    cache_bytes: int = 0
+
+
+# steps the job's consumer thread may enqueue ahead of the card
+STEP_LEAD = 4
+
+# card memory kept free beside the card cache, the accumulators and the
+# staging: the step's whole-frame float32 and band temporaries, cuFFT's
+# workspace, the allocator's rounding
+CARD_CACHE_MARGIN = 2 << 30
+
+
+def cache_placement(card_bytes: int, host_bytes: int,
+                    card_room: Optional[int], host_cap: int) -> str:
+    """Where a job keeps its staged stream, ``card_bytes`` on the card
+    (every chunk's slots) and ``host_bytes`` on the host (its frames):
+    "card" when they fit ``card_room`` (the card's free memory less the
+    plan's accumulators, staging and ``CARD_CACHE_MARGIN``; None: no
+    card), else "host" when they are within ``host_cap``, else "off"."""
+    if card_room is not None and card_bytes <= card_room:
+        return "card"
+    if host_bytes <= host_cap:
+        return "host"
+    return "off"
+
+
+def _job_source(job: ReconstructionJob, slot_filter=None
+                ) -> ProjectionSource:
+    """The job's projection stream, raw: its file table (every HIS header
+    read once) serves every block."""
+    return ProjectionSource(job.input_path, angle_file=job.angle_path,
+                            delta_phi=job.det.delta_phi, quality=job.quality,
+                            slot_filter=slot_filter, raw=True)
+
+
+def _stream_bytes(source: ProjectionSource, det: DetectorGeometry,
+                  chunk_size: int, rows: Tuple[int, int]) -> Tuple[int, int]:
+    """(bytes of this process's chunk rows ``rows`` of the stream as the
+    card keeps them: every slot of every chunk; as the host keeps them:
+    the frames), in the chunks' raw types, from the file table."""
+    lo, hi = rows
+    card = host = 0
+    for r in source.chunk_reads(chunk_size):
+        frame = r.dtype.itemsize * det.n_col * det.n_row
+        card += (hi - lo) * frame
+        host += max(0, min(hi, r.rows) - lo) * frame
+    return card, host
+
+
+def _plan_cache(job: ReconstructionJob, info: SubvolumeInfo,
+                source: Optional[ProjectionSource], chunk_size: int,
+                rows: Tuple[int, int], card_room: Optional[int]
+                ) -> Tuple[str, int]:
+    """(place, bytes) of the job's projection cache, decided once and
+    logged: kept when the job asks (``cache_projections=True``) or, by
+    default, when this run computes more than one block; then
+    ``cache_placement`` of the stream's bytes."""
+    runs = info.num if job.max_blocks is None else min(info.num,
+                                                       job.max_blocks)
+    if not (job.cache_projections is True
+            or (job.cache_projections is None and runs > 1)):
+        logger.info("projection cache: off (%s)",
+                    "cache_projections=False"
+                    if job.cache_projections is False else
+                    "one block" if info.num < 2 else
+                    "one block in this run, max_blocks")
+        return "off", 0
+    cap = resolve_cache_cap(job)
+    logger.info("projection cache: on, cap %.2f GiB (%s)", cap / 2**30,
+                "the job's max_cache_bytes"
+                if job.max_cache_bytes is not None
+                else "64 GiB or half of the host's available memory")
+    if source is None:
+        source = _job_source(job)
+    card_bytes, host_bytes = _stream_bytes(source, job.det, chunk_size, rows)
+    place = cache_placement(card_bytes, host_bytes, card_room, cap)
+    if place == "card":
+        logger.info("projection cache: on the card, %d bytes (%d bytes of "
+                    "the card free beside the plan)", card_bytes, card_room)
+        return place, card_bytes
+    if place == "host":
+        logger.info("projection cache: on the host, %d bytes", host_bytes)
+        return place, host_bytes
+    logger.info("projection cache: the stream passed the cap of %d bytes, "
+                "later blocks stream it again", cap)
+    return "off", 0
 
 
 def plan_job(job: ReconstructionJob, vol_geo: VolumeGeometry,
-             device: torch.device) -> JobPlan:
+             device: torch.device,
+             source: Optional[ProjectionSource] = None) -> JobPlan:
     """The plan ``run_job`` takes for ``job`` on ``device``: the job's
     budget, else 45 % of the card's free memory; the blocks that fit it
-    (or the forced extent); then the cut for the write overlap.  A caller
+    (or the forced extent); then the cut for the write overlap; then where
+    the projection cache lives (``_plan_cache``: on the card when the
+    stream, whose bytes come from ``source``'s file table, fits the free
+    memory less two accumulators with the overlap, else one, the staging
+    and a margin).  ``source`` defaults to the job's, built only when the
+    job caches.  A caller
     that must know where the block seams fall calls it too, and pins the
     result into the job (``block_dz=plan.info.dim_z_padded``): the free
     memory it reads can change between two calls.  Raises ValueError for
@@ -207,7 +312,13 @@ def plan_job(job: ReconstructionJob, vol_geo: VolumeGeometry,
     info, overlap = _plan_write_overlap(
         job, vol_geo, info, free_est, proj_buffer,
         hbm_budget=hbm_budget, proj_buffer=proj_buffer)
-    return JobPlan(info, overlap, hbm_budget)
+    card_room = None if free_est is None or device.type != "cuda" else (
+        free_est - (2 if overlap else 1)
+        * _block_hbm_bytes(vol_geo, info.dim_z_padded)
+        - proj_buffer - CARD_CACHE_MARGIN)
+    cache, cache_bytes = _plan_cache(job, info, source, job.chunk_size,
+                                     (0, job.chunk_size), card_room)
+    return JobPlan(info, overlap, hbm_budget, cache, cache_bytes)
 
 
 def _widest_band(job, full_geo: VolumeGeometry,
@@ -265,32 +376,14 @@ def _roi_offset(job: ReconstructionJob) -> Tuple[int, int, int]:
     return (job.roi.x1, job.roi.y1, job.roi.z1)
 
 
-def _assemble_chunk(plist, det: DetectorGeometry) -> np.ndarray:
-    """Projection list -> (C, n_col, n_row) array; frames left undecoded
-    (None: another rank's slots) become zero rows.
-
-    Copied from ``paris_tpu/parallel/app.py:_assemble_chunk``, whose module
-    imports JAX."""
-    if all(p.data is not None for p in plist):
-        return np.stack([p.data for p in plist])
-    out = np.zeros((len(plist), det.n_col, det.n_row), np.float32)
-    for i, p in enumerate(plist):
-        if p.data is not None:
-            out[i] = p.data
-    return out
-
-
-def _source_chunks(job: ReconstructionJob, chunk_size: int,
-                   slot_filter=None):
-    """(chunk, angles in degrees) pairs of the job's HIS stream.  Frames
-    whose stream position ``slot_filter`` rejects are not decoded and
-    come as zero rows."""
-    src = ProjectionSource(job.input_path, angle_file=job.angle_path,
-                           delta_phi=job.det.delta_phi, quality=job.quality,
-                           slot_filter=slot_filter)
-    for plist in src.iter_chunks(chunk_size):
-        yield (_assemble_chunk(plist, job.det),
-               np.asarray([p.phi for p in plist], np.float32))
+def _source_chunks(source: ProjectionSource, chunk_size: int):
+    """(``ChunkRead``, angles in degrees) pairs of the job's HIS stream:
+    read plans, each read on a staging worker straight into its slot with
+    that worker's share of the host's threads.  Frames the source's
+    ``slot_filter`` rejects are not read and come as zero rows."""
+    n_threads = max(1, (os.cpu_count() or 1) // _STAGE_WORKERS)
+    for r in source.chunk_reads(chunk_size, n_threads):
+        yield r, r.phis
 
 
 MAX_CACHE_BYTES = 64 << 30     # the cache's cap on a host with memory to spare
@@ -318,50 +411,43 @@ def resolve_cache_cap(job: ReconstructionJob) -> int:
 
 
 class _ProjectionCache:
-    """The host copy of the projection stream that later blocks reuse, so
-    a multi-block job reads the HIS directory once.  An explicit
-    ``cache_projections=True`` always collects; None collects when a
-    later block will reuse it; a stream above the cap
-    (``resolve_cache_cap``, taken once per job) is not kept.  It keeps the
-    stream's (chunk, angles) pairs as they came, and never joins them into
-    one array: the host holds at most the cap plus the chunk that crosses
-    it.  Logs the cap, and after the first pass the stream's bytes and
-    whether they were kept."""
+    """The staged stream that later blocks of a job reuse, kept where the
+    plan put it (``JobPlan.cache``): "card", the staged chunks themselves
+    (later blocks do no host or copy work); "host", each chunk's rows in
+    pageable host memory, staged again through the ring; "off", nothing
+    (every block reads the HIS files again)."""
 
-    def __init__(self, job: ReconstructionJob, info: SubvolumeInfo):
-        self.collect = job.cache_projections is True or (
-            job.cache_projections is None and info.num > 1)
-        self.max_bytes = resolve_cache_cap(job) if self.collect else 0
-        self.pairs: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None
-        if self.collect:
-            logger.info("projection cache: on, cap %.2f GiB (%s)",
-                        self.max_bytes / 2**30,
-                        "the job's max_cache_bytes"
-                        if job.max_cache_bytes is not None
-                        else "64 GiB or half of the host's available memory")
-        else:
-            logger.info("projection cache: off (%s)",
-                        "cache_projections=False"
-                        if job.cache_projections is False else "one block")
+    def __init__(self, place: str):
+        self.place = place
+        self.kept: Optional[list] = None
 
-    def tap(self, chunks):
-        """Pass ``chunks`` through, keeping them for later blocks while
-        they fit ``max_bytes``; the kept pairs become ``pairs`` when the
-        stream has ended."""
+    def staged(self, rec, chunks, timers: StageTimers):
+        """(staged chunk, projections) pairs of one block: from the cache
+        once a pass filled it, else from ``chunks()`` ((chunk, angles)
+        pairs) through ``stage_stream``, kept on this first pass when the
+        plan caches.  ``timers`` gets the staging's "read" and
+        "stage_wait" seconds.  Sets ``origin`` to what served the
+        block."""
+        if self.kept is not None and self.place == "card":
+            self.origin = "card cache"
+            yield from self.kept
+            return
+        collect = self.kept is None and self.place != "off"
+        self.origin = "host cache" if self.kept is not None else "HIS files"
+        pairs = self.kept if self.kept is not None else chunks()
+        stage = functools.partial(rec.stage_chunk, timers=timers,
+                                  keep=collect and self.place == "host")
         kept, nbytes = [], 0
-        for data, angs in chunks:
-            if self.collect:
-                kept.append((data, angs))
-                nbytes += data.nbytes
-                if nbytes > self.max_bytes:
-                    self.collect = False
-                    kept.clear()
-                    logger.info("projection cache: the stream passed the "
-                                "cap of %d bytes, later blocks stream it "
-                                "again", self.max_bytes)
-            yield data, angs
-        if self.collect and kept:
-            self.pairs = kept
+        for staged, k in stage_stream(stage, pairs, timers=timers):
+            if collect and self.place == "card":
+                kept.append((staged._replace(host=None), k))
+                nbytes += staged.chunk.numel() * staged.chunk.element_size()
+            elif collect:
+                kept.append(staged.host)
+                nbytes += staged.host[0].array.nbytes
+            yield staged._replace(host=None), k
+        if collect:
+            self.kept = kept
             logger.info("projection cache: kept the stream's %d bytes for "
                         "later blocks", nbytes)
 
@@ -395,14 +481,23 @@ def _reconstruct_block(rec, job: ReconstructionJob, block, info,
     # the rate counts valid voxels only (padded tail slices are compute
     # overhead, not useful updates)
     meter = ThroughputMeter(block.dim_z * vol_geo.dim_y * vol_geo.dim_x)
-    with timers.time("reconstruct"), trace(job.trace_dir, device):
-        # consumed on THIS thread by stage_stream; staging (quantize +
-        # h2d) runs on its worker threads
-        pairs = (cache.pairs if cache.pairs is not None
-                 else cache.tap(chunks()))
-        for staged, k in stage_stream(rec.stage_chunk, pairs):
-            volume = rec.step_staged(volume, staged, z_offset=block.z0,
-                                     roi_offset=roi)
+    split = StageTimers()            # this block's ingest split
+    enqueued = collections.deque()   # events after the steps in flight
+    with split.time("reconstruct"), trace(job.trace_dir, device):
+        # consumed on THIS thread; reads into the staging ring and the
+        # copies to the card run on stage_stream's worker threads
+        for staged, k in cache.staged(rec, chunks, split):
+            with split.time("step_enqueue"):
+                volume = rec.step_staged(volume, staged, z_offset=block.z0,
+                                         roi_offset=roi)
+            if device.type == "cuda":
+                # stay at most STEP_LEAD steps ahead of the card, so that
+                # the staged chunks the card has yet to read stay few
+                enqueued.append(torch.cuda.Event())
+                enqueued[-1].record()
+                if len(enqueued) > STEP_LEAD:
+                    with split.time("card_wait"):
+                        enqueued.popleft().synchronize()
             if first:
                 # time-to-first-chunk marker: the first step of a
                 # process builds the kernel
@@ -419,7 +514,27 @@ def _reconstruct_block(rec, job: ReconstructionJob, block, info,
             torch.cuda.synchronize(device)
     if meter.projections == 0:
         logger.warning("no projections found in %s", job.input_path)
+    timers.merge(split)
+    _log_ingest(block, split, cache.origin)
     return volume, ready, meter
+
+
+def _log_ingest(block, split: StageTimers, origin: str) -> None:
+    """The block's ingest split, host seconds: its reconstruct stage
+    (until the card has finished); "read", the staging workers' fills of
+    the ring (HIS files, or the host cache, into a slot; summed over the
+    workers, which read in parallel); "stage_wait", the consumer waiting
+    on a staged chunk (the host holds the card back); "step_enqueue", the
+    consumer enqueuing the steps; "card_wait", the consumer waiting for
+    the card to come within ``STEP_LEAD`` steps (the card holds the host
+    back).  The rest of the stage is the card finishing the last steps."""
+    t, c = split.totals, split.counts
+    logger.info("block %d ingest from the %s: reconstruct %.3f s, read "
+                "%.3f s (%d chunks), stage_wait %.3f s, step_enqueue %.3f s "
+                "(%d steps), card_wait %.3f s", block.index, origin,
+                t["reconstruct"], t.get("read", 0.0), c.get("read", 0),
+                t.get("stage_wait", 0.0), t.get("step_enqueue", 0.0),
+                c.get("step_enqueue", 0), t.get("card_wait", 0.0))
 
 
 def _log_block_done(block, meter) -> None:
@@ -460,8 +575,9 @@ def _run_job(job: ReconstructionJob) -> str:
         logger.info("ROI volume [vx]: %d x %d x %d",
                     vol_geo.dim_x, vol_geo.dim_y, vol_geo.dim_z)
 
+    source = _job_source(job)
     try:
-        plan = plan_job(job, vol_geo, device)
+        plan = plan_job(job, vol_geo, device, source)
     except ValueError as e:
         raise StageConstructionError(str(e)) from e
     info, overlap = plan.info, plan.overlap
@@ -485,7 +601,7 @@ def _run_job(job: ReconstructionJob) -> str:
                 rec.backend, device, rec.chunk_size, rec.accuracy)
     on_card = device.type == "cuda"
 
-    cache = _ProjectionCache(job, info)
+    cache = _ProjectionCache(plan.cache)
     n_done = 0
 
     if overlap and info.num > 1:
@@ -517,7 +633,7 @@ def _run_job(job: ReconstructionJob) -> str:
                 break
             volume, ready, meter = _reconstruct_block(
                 rec, job, block, info, vol_geo, cache, timers,
-                lambda: _source_chunks(job, rec.chunk_size),
+                lambda: _source_chunks(source, rec.chunk_size),
                 first=n_done == 0)
             if pending is not None:
                 # bound in-flight accumulators at 2 (this block's + the

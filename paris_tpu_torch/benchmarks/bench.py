@@ -11,12 +11,13 @@ The last line printed is ONE JSON object with the JAX bench's schema:
 
 What is timed is what the JAX bench times (its ``Reconstructor._step``):
 dequantize, weight, ramp filter and backproject one chunk that is already
-on the device.  Here that is ``Reconstructor.step_staged`` on a staged
-tuple built directly: a float32 chunk of standard normals from
-``np.random.default_rng(0)``, the sines and cosines of C angles
-``delta_phi`` apart, and identity qparams, in both modes (fast mode hands
-the filtered chunk to the kernel as bf16; the u16 staging of
-``stage_chunk`` is not part of the step, as in the JAX bench).  CUDA
+on the device.  Here that is ``Reconstructor.step_staged`` on a
+``Staged`` chunk built directly: a float32 chunk of standard normals from
+``np.random.default_rng(0)`` and the sines and cosines of C angles
+``delta_phi`` apart.  In fast mode the port's step also takes the chunk
+through the per-frame u16 round trip on the card, which the JAX package
+ran on its host while staging (outside its bench's step), and hands the
+filtered chunk to the kernel as bf16.  CUDA
 events around the JAX iteration count, min(100, max(3, ceil(2e10 / (block
 voxels x C)))), after one warm-up step, repeated 5 times; ``value`` is the
 repeats' median.
@@ -62,7 +63,7 @@ from .. import _build
 from ..geometry import DetectorGeometry, derive_volume_geometry, \
     detector_row_band
 from ..ops import backprojection_cuda as bc
-from ..pipeline import Reconstructor, identity_qparams
+from ..pipeline import Reconstructor, Staged
 from .full_scale_2048_3600 import RESULTS_DIR, card_record, record_result
 from .k1_compare import HBM_BYTES_PER_S, k1_bound_ms, ptxas_registers, \
     time_ms
@@ -109,15 +110,16 @@ def bench_inputs(det: DetectorGeometry, C: int):
     return chunk, phi
 
 
-def staged_chunk(rec: Reconstructor, chunk: np.ndarray, phi: np.ndarray):
-    """The (chunk, sin, cos, qparams) tuple ``step_staged`` consumes, on
-    the reconstructor's device, float32 with identity qparams (no
-    dequantization in either mode); a ``DistributedReconstructor`` gets
-    its rank's slots of it."""
+def staged_chunk(rec: Reconstructor, chunk: np.ndarray,
+                 phi: np.ndarray) -> Staged:
+    """The ``Staged`` chunk ``step_staged`` consumes, on the
+    reconstructor's device: the float32 frames, all of them data; a
+    ``DistributedReconstructor`` gets its rank's slots of it."""
     lo, hi = getattr(rec, "_slots", (0, rec.chunk_size))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(rec.device)
-                 for a in (chunk[lo:hi], np.sin(phi[lo:hi]),
-                           np.cos(phi[lo:hi]), identity_qparams(hi - lo)))
+    chunk, sin, cos = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        rec.device) for a in (chunk[lo:hi], np.sin(phi[lo:hi]),
+                              np.cos(phi[lo:hi])))
+    return Staged(chunk, sin, cos, hi - lo)
 
 
 def setup(size: int, C: int, accuracy: str, backend: str,
@@ -167,8 +169,8 @@ def run(size: int = 1024, C: int = 24, accuracy: str = "fast",
                     iters, warmup=1 if r == 0 else 0)
             for r in range(REPEATS)]
 
-    chunk, sin, cos, qparams = staged
-    filtered, v_lo = rec._filter_band(chunk, qparams, 0)
+    chunk, sin, cos, n = staged[:4]
+    filtered, v_lo = rec._filter_band(chunk, n, 0)
     k1 = [step_ms(rec.device, lambda: bc.backproject_chunk(
         volume, filtered, sin, cos, rec.grid, z_offset=0, v_lo=v_lo), iters)
         for _ in range(REPEATS)]

@@ -10,8 +10,9 @@ of ``benchmarks/full_scale_2048_3600.py``).
     ``scan_map.json`` goes into the result;
   * plan: ``block_dz`` pinned to 344, which gives 6 blocks with seams at
     z 344, 688, 1032, 1376 and 1720, so the gated slabs do not depend on
-    the card's free memory; the job streams the scan from disk for every
-    block (``cache_projections=False``), 8 projections per step;
+    the card's free memory; 8 projections per step; the job's projection
+    cache as its plan decides (a run of more than one block keeps the
+    staged scan on the card where it fits, so later blocks read nothing);
   * gates, derived from the plan: for every block k >= 1 at z0_k the seam
     slab (z0_k - 2, 4), and the interior slab z 858..861, each read back
     from the ddbvf at relative RMSE <= 1e-3 against the golden oracle
@@ -19,8 +20,13 @@ of ``benchmarks/full_scale_2048_3600.py``).
     run to its end before the first timed job; one golden serves every
     accuracy of the run);
   * recorded: end-to-end seconds and Gupd/s, per-block proj/s and Gupd/s,
-    the stage timers, K1's launches (blocks x chunks on the card), the
-    plan, the scan's map, the card.
+    the ingest split per block (where the block's frames came from, its
+    reconstruct seconds, the host's seconds reading into the staging
+    ring, waiting on staged chunks, enqueuing steps and waiting on the
+    card, and on the card the reconstruct seconds over K1's: chunks x K1
+    alone at a block of the plan, ``k1_ms_at_block``), the projection
+    cache's lines, the stage timers, K1's launches (blocks x chunks on the
+    card), the plan, the scan's map, the card.
 
 A job too large for one run (the disk, or a time limit) is split by
 block: ``--first-block K --max-blocks N`` runs blocks K..K+N-1 through
@@ -82,11 +88,14 @@ RESULTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 class _JobLogTap(logging.Handler):
-    """The job's per-block rates and stage timers, from its log records."""
+    """The job's per-block rates, ingest split and stage timers, and where
+    its projection cache lives, from its log records."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.block_rates = []          # (proj/s, Gupd/s) per block
+        self.ingest = []               # the ingest split per block
+        self.cache = []                # "projection cache: ..." lines
         self.timings = []              # "stage timings" texts
         self.band_rows = None          # (band rows, detector rows)
 
@@ -94,6 +103,16 @@ class _JobLogTap(logging.Handler):
         if record.msg.startswith("block %d done"):
             _index, _n, pps, gups = record.args
             self.block_rates.append((pps, gups))
+        elif record.msg.startswith("block %d ingest"):
+            (index, origin, rec_s, read_s, chunks, wait_s, enqueue_s,
+             steps, card_s) = record.args
+            self.ingest.append({
+                "block": index, "from": origin, "reconstruct_s": rec_s,
+                "read_s": read_s, "read_chunks": chunks,
+                "stage_wait_s": wait_s, "step_enqueue_s": enqueue_s,
+                "steps": steps, "card_wait_s": card_s})
+        elif record.msg.startswith("projection cache"):
+            self.cache.append(record.getMessage())
         elif record.msg.startswith("stage timings"):
             self.timings.append(record.args[0])
         elif record.msg.startswith("detector row band"):
@@ -284,7 +303,10 @@ def run_call(workdir: str, *, accuracies: Sequence[str] = ("fast",),
     job = ReconstructionJob(
         det=det, input_path=pdir, output_path=workdir, chunk_size=CHUNK,
         backend=backend, block_dz=block_dz, cache_projections=False)
+    # this plan only names the seams (the scan may not exist yet, and the
+    # cache needs its headers); the runs below plan their own cache
     plan = plan_job(job, vol, device)
+    job = dataclasses.replace(job, cache_projections=None)
     info = plan.info
     slabs = plan_slabs(info, vol.dim_z, interior)
     last = info.num if max_blocks is None else min(info.num,
@@ -337,6 +359,7 @@ def run_call(workdir: str, *, accuracies: Sequence[str] = ("fast",),
             t0 = time.perf_counter()
             out = run_job(run)
             wall = time.perf_counter() - t0
+        launches = backproject_chunk_cuda.launches - launches
         with open(out + ".manifest.json") as f:
             done = json.load(f)["completed_blocks"]
         if done != list(range(last)):
@@ -345,6 +368,14 @@ def run_call(workdir: str, *, accuracies: Sequence[str] = ("fast",),
         gated = [_gate_part(out, p, goldens[p["z0"]]) for p in parts]
         if not keep_output:
             os.remove(out)
+        k1_ms = None
+        if on_card:
+            # K1 alone at a block of the plan, in this accuracy: what a
+            # block's reconstruct stage is held against
+            from .weak_scaling_projection import kernel_gups_on_card
+            k1_ms = kernel_gups_on_card(accuracy)["ms"]
+            for b in tap.ingest:
+                b["over_k1"] = b["reconstruct_s"] / (chunks * k1_ms / 1e3)
         voxels = sum(b.dim_z for b in blocks) * vol.dim_y * vol.dim_x
         rec = {
             "name": name if not split else
@@ -354,13 +385,15 @@ def run_call(workdir: str, *, accuracies: Sequence[str] = ("fast",),
             "gupd_per_s_end_to_end": voxels * n_proj / wall / 1e9,
             "per_block_proj_per_s": [p for p, _ in tap.block_rates],
             "per_block_gupd_per_s": [g for _, g in tap.block_rates],
+            "per_block_ingest": tap.ingest,
+            "projection_cache": tap.cache,
             "stage_timings": tap.timings,
             "stage_seconds": stage_seconds(tap.timings[-1])
             if tap.timings else {},
             "band_rows": tap.band_rows,
-            "k1_launches": (backproject_chunk_cuda.launches - launches
-                            if on_card else None),
+            "k1_launches": launches if on_card else None,
             "k1_launches_expected": len(blocks) * chunks if on_card else None,
+            "k1_ms_at_block": k1_ms,
             "slab_parts": gated}
         print(f"[full-scale] {rec['name']}: blocks {rec['blocks']} in "
               f"{wall:.1f} s, K1 launches {rec['k1_launches']}, parts "
@@ -405,8 +438,9 @@ def combine(records: Sequence[dict]) -> dict:
     res["end_to_end_seconds"] = wall
     res["gupd_per_s_end_to_end"] = (math.prod(first["volume"])
                                     * first["n_proj"] / wall / 1e9)
-    for key in ("per_block_proj_per_s", "per_block_gupd_per_s"):
-        res[key] = [x for r in recs for x in r[key]]
+    for key in ("per_block_proj_per_s", "per_block_gupd_per_s",
+                "per_block_ingest"):
+        res[key] = [x for r in recs for x in r.get(key, [])]
     stages: Dict[str, float] = {}
     for r in recs:
         for k, v in r["stage_seconds"].items():

@@ -19,8 +19,8 @@
 Names, keys and gates (relative RMSE = RMSE / max|golden| <= 1e-3) are the
 JAX driver's.  What differs:
   * the throughputs (configs 2 and 5) time ``step_staged`` on a float32
-    chunk already on the device with identity qparams, as ``bench`` does,
-    between CUDA events on the card;
+    chunk already on the device, as ``bench`` does, between CUDA events on
+    the card;
   * config 2's and 3's scans come from the analytic projector on the
     backend's device (``config3_stream.cached_scan``: HIS files of 8
     float32 frames) and their golden oracle reads the same frames, as one

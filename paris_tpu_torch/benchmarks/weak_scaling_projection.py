@@ -129,10 +129,10 @@ def config5_band():
     return det, vol, info, vp
 
 
-def kernel_gups_on_card() -> dict:
+def kernel_gups_on_card(accuracy: str = "fast") -> dict:
     """K1's Gupd/s at one config-5 block on the job's band: block 1 of the
-    344-slice blocks, fast (bf16), C = 8, CUDA events over 5 launches;
-    with the card's record."""
+    344-slice blocks, fast (bf16; exact: float32), C = 8, CUDA events over
+    5 launches; with the card's record."""
     from ..ops.backprojection_cuda import backproject_chunk_cuda
     from ..ops.backprojection_torch import make_bp_grid
     from .k1_compare import time_ms
@@ -145,7 +145,7 @@ def kernel_gups_on_card() -> dict:
     rng = np.random.default_rng(2026)
     band = torch.as_tensor(rng.standard_normal(
         (C5_C, vp, det.n_row)).astype(np.float32), device=dev).to(
-        torch.bfloat16)
+        torch.bfloat16 if accuracy == "fast" else torch.float32)
     phi = torch.as_tensor(np.deg2rad(np.arange(C5_C) * det.delta_phi
                                      ).astype(np.float32), device=dev)
     sin, cos = torch.sin(phi), torch.cos(phi)

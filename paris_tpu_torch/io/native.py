@@ -1,10 +1,12 @@
-"""ctypes bindings for the port's native I/O library
-(``paris_tpu_torch/csrc/paris_io.cpp``, a copy of ``native/paris_io.cpp``).
+"""ctypes bindings for the port's native I/O libraries
+(``paris_tpu_torch/csrc/paris_io.cpp``, a copy of ``native/paris_io.cpp``,
+and ``csrc/paris_ingest.cpp``, the raw HIS reader of the ingest stage).
 
 Port of ``paris_tpu/io/native.py``.  The library is built at first use
 with the host C++ compiler by ``paris_tpu_torch._build`` (no ``nvcc``
-needed) and exposes fast HIS decode, threaded ddbvf block I/O and the
-u16 quantizer.  Every entry point answers ``available()`` so callers
+needed) and exposes fast HIS decode (to float32, or raw in the stored
+type into a caller's buffer), threaded ddbvf block I/O and the u16
+quantizer.  Every entry point answers ``available()`` so callers
 (io/his.py, io/ddbvf.py, pipeline.quantize_chunk_u16) can fall back to
 the pure-Python implementations — behavior is identical either way; the
 native path just decodes/writes without the GIL and in parallel.  A
@@ -45,28 +47,37 @@ class _HisInfo(ctypes.Structure):
 
 
 _lock = threading.Lock()
-_state = {"tried": False, "lib": None}
+_state = {}          # library name -> the loaded library, or None
 
 
-def _library() -> Optional[ctypes.CDLL]:
-    """The loaded library, built on the first call; None if it cannot be
-    built or loaded (the first failure is logged, and not retried)."""
+def _library(name: str = "paris_io") -> Optional[ctypes.CDLL]:
+    """The loaded library ``name`` (``paris_io``, or ``paris_ingest``, the
+    raw HIS reader), built on the first call; None if it cannot be built
+    or loaded (the first failure is logged, and not retried)."""
     with _lock:
-        if not _state["tried"]:
-            _state["tried"] = True
+        if name not in _state:
+            _state[name] = None
             from .. import _build
             try:
-                _state["lib"] = _build.load_library("paris_io")
+                _state[name] = _build.load_library(name)
             except (OSError, RuntimeError) as e:
-                logger.warning("native I/O library unavailable, using the "
-                               "pure-Python path: %s", e)
-        return _state["lib"]
+                logger.warning("native library %s unavailable, using the "
+                               "pure-Python path: %s", name, e)
+        return _state[name]
 
 
 def available() -> bool:
     if os.environ.get("PARIS_IO_NO_NATIVE") == "1":
         return False
     return _library() is not None
+
+
+def raw_available() -> bool:
+    """Is the raw HIS reader (``his_read_raw``, ``his_read_frames``)
+    built?"""
+    if os.environ.get("PARIS_IO_NO_NATIVE") == "1":
+        return False
+    return _library("paris_ingest") is not None
 
 
 class NativeIoError(OSError):
@@ -87,6 +98,30 @@ def his_read(path: str) -> np.ndarray:
     if rc != OK:
         raise NativeIoError(rc, path)
     return out
+
+
+def his_read_raw(path: str, out: np.ndarray) -> None:
+    """Native raw HIS read of every frame into ``out`` (C-contiguous, the
+    file's raw type: ``his.raw_dtype``)."""
+    rc = _library("paris_ingest").paris_his_read_raw(
+        path.encode(), out.ctypes.data, out.nbytes)
+    if rc != OK:
+        raise NativeIoError(rc, path)
+
+
+def his_read_frames(path: str, number_type: int, image_header_size: int,
+                    first: int, out: np.ndarray, n_threads: int = 0) -> None:
+    """Native raw read of frames [first, first + len(out)) of a HIS file
+    whose header the caller parsed, into ``out`` ((count, h, w),
+    C-contiguous, the raw type), without parsing the header again.
+    ``n_threads``: 0 = one per hardware thread."""
+    count = out.shape[0]
+    rc = _library("paris_ingest").paris_his_read_frames(
+        path.encode(), number_type, image_header_size,
+        out[0].size if count else 1, first, count, out.ctypes.data,
+        out.nbytes, n_threads)
+    if rc != OK:
+        raise NativeIoError(rc, path)
 
 
 def quantize_u16_available() -> bool:

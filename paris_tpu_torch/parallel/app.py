@@ -3,8 +3,9 @@ default process group (port of ``paris_tpu/parallel/app.py``).
 
 The multi-rank analog of ``app.run_job``.  Each z-block is reconstructed
 with its z axis sharded over the ranks; every rank walks the same
-projection stream but decodes only the frames of its own chunk slots,
-and writes only its own slab, at its global offset
+projection stream but reads only the frames of its own chunk slots, raw,
+through its own staging ring (and caches only those, where its plan
+keeps a cache), and writes only its own slab, at its global offset
 (``DistributedReconstructor.write_shards``): no rank holds a whole block
 unless it is the only one.
 
@@ -24,8 +25,9 @@ from typing import Optional
 import torch
 
 from ..app import (
-    ReconstructionJob, _after, _auto_hbm_budget, _finish_writer,
-    _free_hbm_bytes, _log_block_done, _overlap_free_est, _plan_write_overlap,
+    CARD_CACHE_MARGIN, ReconstructionJob, _after, _auto_hbm_budget,
+    _block_hbm_bytes, _finish_writer, _free_hbm_bytes, _job_source,
+    _log_block_done, _overlap_free_est, _plan_cache, _plan_write_overlap,
     _ProjectionCache, _reconstruct_block, _source_chunks, _widest_band,
 )
 from ..exceptions import ParisError, StageConstructionError, StageRuntimeError
@@ -130,14 +132,21 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
                 rec.accuracy)
 
     slot_filter = None
+    lo, hi = owned_slots(rank, world, chunk)
     if world > 1:
         # decode only this rank's slots: input decode scales with ranks
-        lo, hi = owned_slots(rank, world, chunk)
         logger.info("disjoint input: this rank decodes %d of %d chunk "
                     "slots", hi - lo, chunk)
         slot_filter = lambda pos: lo <= pos % chunk < hi  # noqa: E731
-
-    cache = _ProjectionCache(job, info)
+    source = _job_source(job, slot_filter)
+    # each rank caches its own slots, on its card when they fit beside its
+    # share of the plan's accumulators
+    card_room = None if device.type != "cuda" or free_est is None else (
+        free_est - (2 if overlap else 1)
+        * _block_hbm_bytes(vol_geo, info.dim_z_padded) // world
+        - per_rank_proj - CARD_CACHE_MARGIN)
+    place, _ = _plan_cache(job, info, source, chunk, (lo, hi), card_room)
+    cache = _ProjectionCache(place)
     n_done = 0
     if overlap and info.num > 1:
         logger.info("write overlap: block k+1 reconstructs while "
@@ -182,7 +191,7 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
                     break
                 volume, ready, meter = _reconstruct_block(
                     rec, job, block, info, vol_geo, cache, timers,
-                    lambda: _source_chunks(job, chunk, slot_filter),
+                    lambda: _source_chunks(source, chunk),
                     first=n_done == 0)
                 # bound in-flight accumulators at 2 (this block's and the
                 # draining one); surfaces writer errors

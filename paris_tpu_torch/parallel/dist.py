@@ -3,10 +3,10 @@ projections all-gathered (port of ``paris_tpu/parallel/dist.py``).
 
 Per step, mirroring the JAX package's shard step (``dist.py:186-222``):
   1. rank r owns chunk slots [r*C/n, (r+1)*C/n) (``owned_slots``) and
-     stages only those frames: in fast mode it quantizes u16 only over
-     them;
-  2. it cuts the detector-row band, dequantizes, weights and filters its
-     frames;
+     stages only those frames, raw, through its ring (``stage_chunk``);
+  2. on its card it converts them to float32, in fast mode takes them
+     through the u16 round trip, cuts the detector-row band, dequantizes,
+     weights and filters them;
   3. ``all_gather_into_tensor`` gives every rank the whole banded,
      filtered chunk (bf16 in fast mode, float32 in exact mode), with its
      sines and cosines; the collective carries only the rows the block
@@ -33,8 +33,7 @@ import torch.distributed as dist
 from ..geometry import DetectorGeometry, VolumeGeometry
 
 from ..ops.backprojection_cuda import backproject_chunk
-from ..pipeline import (Reconstructor, _STAGE_WORKERS, identity_qparams,
-                        quantize_chunk_u16)
+from ..pipeline import Reconstructor
 from . import multihost
 from .mesh import group_backend, world_and_rank
 
@@ -87,6 +86,9 @@ class DistributedReconstructor(Reconstructor):
                          block_shape=block_shape, backend=backend,
                          accuracy=accuracy, device=device,
                          v_band_width=v_band_width)
+        # stage_chunk stages only these rows; the other ranks' are never
+        # read (they may be zero rows that were not decoded)
+        self._stage_rows = self._slots
         want = group_backend(self.backend)
         if dist.get_backend(group) != want:
             raise ValueError(f"a reconstruction on {self.device} needs a "
@@ -98,30 +100,6 @@ class DistributedReconstructor(Reconstructor):
         _, ny, nx = self.block_shape
         return torch.zeros((self.local_dz, ny, nx), dtype=torch.float32,
                            device=self.device)
-
-    def stage_chunk(self, chunk, ang):
-        """Start the host-to-device copy of this rank's slots of one
-        (chunk, angles) pair; the other ranks' rows are never read (they
-        may be zero rows that were not decoded)."""
-        lo, hi = self._slots
-        chunk = np.asarray(chunk, dtype=np.float32)
-        ang = np.asarray(ang, dtype=np.float32)
-        if ang.shape[0] < self.chunk_size:
-            ang = np.pad(ang, (0, self.chunk_size - ang.shape[0]))
-        own = chunk[lo:hi]
-        if self.accuracy == "fast" and own.shape[0]:
-            own, qparams = quantize_chunk_u16(
-                np.ascontiguousarray(own), hi - lo,
-                concurrency=_STAGE_WORKERS)
-        elif self.accuracy == "fast":       # past the stream's end
-            own = np.zeros((hi - lo,) + chunk.shape[1:], np.uint16)
-            qparams = np.zeros((hi - lo, 2), np.float32)
-        else:
-            qparams = identity_qparams(hi - lo)
-            own = np.pad(own, ((0, hi - lo - own.shape[0]), (0, 0), (0, 0)))
-        phi = np.deg2rad(ang[lo:hi]).astype(np.float32)
-        return tuple(self._put(a) for a in
-                     (own, np.sin(phi), np.cos(phi), qparams))
 
     def _gather(self, t: torch.Tensor) -> torch.Tensor:
         out = torch.empty((self.world * t.shape[0],) + tuple(t.shape[1:]),
@@ -135,10 +113,10 @@ class DistributedReconstructor(Reconstructor):
                     ) -> torch.Tensor:
         """Accumulate one staged chunk into this rank's slab IN PLACE.
         Runs three collectives: call it from one thread only."""
-        chunk, sin, cos, qparams = staged
+        chunk, sin, cos, n = self._ready(staged)[:4]
         rx1, ry1, rz1 = roi_offset
         z0 = rz1 + z_offset
-        filtered, v_lo = self._filter_band(chunk, qparams, z0)
+        filtered, v_lo = self._filter_band(chunk, n, z0)
         return backproject_chunk(
             volume, self._gather(filtered), self._gather(sin),
             self._gather(cos), self.grid,

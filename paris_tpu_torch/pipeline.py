@@ -1,23 +1,30 @@
 """Single-device FDK reconstruction pipeline (port of
 ``paris_tpu/pipeline.py``).
 
-Projections are processed in fixed-size chunks: a chunk is staged to
-the device (per-frame affine u16 in fast mode, float32 in exact mode),
-cut to the detector-row band the block samples, dequantized,
-cosine-weighted and ramp-filtered as one batch, then backprojected into
-a resident volume block, which is updated in place (the JAX package
-donated it).  Chunks are staged on worker threads
-(``stage_stream``) so host quantization and host-to-device copies
-overlap the device's work on earlier chunks.
+Projections are processed in fixed-size chunks.  ``stage_chunk`` fills a
+slot of a ring of pinned host buffers with a chunk's frames in the type
+they were stored in (u8, u16 or f32; a ``ChunkRead`` reads them from the
+HIS files straight into the slot) and copies it to the card on a copy
+stream of its own; the step that consumes it waits on that copy's event
+alone.  ``step_staged`` then, on the card: converts the frames to float32,
+in fast mode takes them through the per-frame affine u16 quantization of
+the JAX package's host (bit for bit ``paris_quantize_u16``), cuts the
+detector-row band the block samples, dequantizes, cosine-weights and
+ramp-filters it as one batch, and backprojects it into a resident volume
+block, which is updated in place (the JAX package donated it).  Chunks
+are staged on worker threads (``stage_stream``), so reads and copies
+overlap the card's work on earlier chunks.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import itertools
 import os
-from typing import Iterator, Optional, Tuple
+import threading
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +34,11 @@ from .ops.weighting import weight_map
 from .ops.filtering import ramp_filter_spectrum, filter_projections
 from .ops.backprojection_torch import make_bp_grid
 from .ops.backprojection_cuda import backproject_chunk
+from .utils.profiling import annotate
 
 __all__ = ["Reconstructor", "reconstruct", "preprocess_chunk",
            "dequantize_chunk", "quantize_chunk_u16", "identity_qparams",
+           "quantize_u16_torch", "u16_round_trip", "Staged", "ArrayRows",
            "stage_stream", "resolve_backend", "from_jax_state",
            "to_jax_state"]
 
@@ -78,6 +87,67 @@ def quantize_chunk_u16(chunk: np.ndarray, pad_to: int, *,
     return q, qparams
 
 
+# The native quantizer's int32 conversion of a rounded code: the x86
+# conversion of a value at or past 2^31 (or NaN) is INT_MIN, whose low 16
+# bits are 0; below it, the code wraps modulo 2^16 (uint16 of int32).
+_INT32_LIMIT = 2.0 ** 31
+
+
+def _u16_params(frames: torch.Tensor, n: int) -> torch.Tensor:
+    """(C, 2) float32 rows [scale, lo] of the per-frame affine u16
+    quantization of (C, ...) float32 ``frames``, the first ``n`` of them
+    data: lo and hi are a frame's min and max, scale = (hi - lo) / 65535
+    by true division (a tensor divisor: ATen's CUDA division by a scalar
+    multiplies by its reciprocal), 1 for a constant frame; frames from
+    ``n`` on (padding) get (0, 0).  ``paris_quantize_u16`` bit for bit."""
+    flat = frames.reshape(frames.shape[0], -1)
+    lo, hi = flat.amin(dim=1), flat.amax(dim=1)
+    scale = (hi - lo) / torch.full_like(lo, 65535.0)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    qparams = torch.stack([scale, lo], dim=1)
+    qparams[n:] = 0
+    return qparams
+
+
+def _u16_codes(frames: torch.Tensor, qparams: torch.Tensor) -> torch.Tensor:
+    """int32 codes in [0, 65535] of ``frames`` (C, ...) under ``qparams``:
+    rint((x - lo) * (1 / scale)), half to even, each operation rounded on
+    its own (separate kernels: no FMA can fuse them), then the native
+    quantizer's uint16(int32(.)); 0 where scale is 0 (padding)."""
+    scale, lo = qparams[:, 0], qparams[:, 1]
+    inv = torch.where(scale > 0, torch.ones_like(scale) / scale,
+                      torch.zeros_like(scale))
+    shape = (-1,) + (1,) * (frames.dim() - 1)
+    r = torch.round((frames - lo.view(shape)) * inv.view(shape))
+    r = torch.where(r < _INT32_LIMIT, r, torch.zeros_like(r))
+    return r.to(torch.int32).bitwise_and_(0xFFFF)
+
+
+def quantize_u16_torch(frames: torch.Tensor, n: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int32 codes, (C, 2) qparams) of the per-frame affine u16
+    quantization of (C, V, H) float32 ``frames`` on their device, the
+    first ``n`` (default all) of them data: ``quantize_chunk_u16`` of
+    ``frames[:n]`` padded to C, bit for bit, codes and qparams (the codes
+    as int32)."""
+    qparams = _u16_params(frames, frames.shape[0] if n is None else n)
+    return _u16_codes(frames, qparams), qparams
+
+
+def u16_round_trip(frames: torch.Tensor, qparams: torch.Tensor
+                   ) -> torch.Tensor:
+    """float32 ``frames`` through the u16 wire and back:
+    ``dequantize_chunk`` of their codes under ``qparams``, what the JAX
+    package's fast mode computes from a frame quantized on its host.
+    ``launches`` counts the calls on the card."""
+    if frames.is_cuda:
+        u16_round_trip.launches += 1
+    return dequantize_chunk(_u16_codes(frames, qparams), qparams)
+
+
+u16_round_trip.launches = 0
+
+
 def identity_qparams(pad_to: int) -> np.ndarray:
     """(pad_to, 2) qparams that make dequantize_chunk the identity.
 
@@ -87,19 +157,31 @@ def identity_qparams(pad_to: int) -> np.ndarray:
     return qp
 
 
-# concurrent staging workers (stage_stream default); the native
-# quantizer divides its thread budget by this
+# concurrent staging workers (stage_stream default); the raw HIS reader
+# and the native quantizer divide their thread budget by this
 _STAGE_WORKERS = 2
 
 
+# staging slots per chunk shape: stage_stream keeps at most depth + 1
+# chunks pending, so a slot comes round again only after its chunk has
+# been consumed
+_RING_SLOTS = 4
+
+
+def _timed(timers, name: str):
+    return timers.time(name) if timers is not None else \
+        contextlib.nullcontext()
+
+
 def stage_stream(stage_fn, pairs, *, depth: int = 3,
-                 workers: int = _STAGE_WORKERS):
+                 workers: int = _STAGE_WORKERS, timers=None):
     """Run ``stage_fn(data, angles)`` on a thread pool, keeping up to
     ``depth`` staged chunks in flight; yields ``(staged, n)`` in order.
 
     Copied from ``paris_tpu/pipeline.py:stage_stream``.  The consumer
-    thread only enqueues steps; quantization and host-to-device copies
-    run on the workers.
+    thread only enqueues steps; reads and host-to-device copies run on the
+    workers.  ``timers`` (a ``StageTimers``) gets the consumer's seconds
+    waiting on a staged chunk as "stage_wait".
     """
     with concurrent.futures.ThreadPoolExecutor(
             workers, thread_name_prefix="paris-stage") as ex:
@@ -110,7 +192,8 @@ def stage_stream(stage_fn, pairs, *, depth: int = 3,
                 futs.append((ex.submit(stage_fn, data, ang), len(ang)))
             while futs:
                 fut, n = futs.popleft()
-                staged = fut.result()
+                with _timed(timers, "stage_wait"):
+                    staged = fut.result()
                 nxt = next(pairs, None)
                 if nxt is not None:
                     futs.append(
@@ -119,6 +202,109 @@ def stage_stream(stage_fn, pairs, *, depth: int = 3,
         finally:
             for fut, _ in futs:
                 fut.cancel()
+
+
+class Staged(NamedTuple):
+    """A chunk on the reconstructor's device, as ``step_staged`` consumes
+    it: ``chunk`` (C, n_col, n_row) in its raw type (float32, uint8, or
+    int16 holding u16 bits), the angles' ``sin`` and ``cos``, ``n`` the
+    frames that are data (the rest are zero padding), ``ready`` the event
+    of its host-to-device copy (None: nothing to wait for), and ``host``,
+    when the stage was asked to keep one, the chunk's rows in host memory
+    with its angles: an (``ArrayRows``, angles) pair to stage again."""
+    chunk: torch.Tensor
+    sin: torch.Tensor
+    cos: torch.Tensor
+    n: int
+    ready: Optional["torch.cuda.Event"] = None
+    host: Optional[Tuple["ArrayRows", np.ndarray]] = None
+
+
+_RAW_TYPES = {np.dtype(np.float32): torch.float32,
+              np.dtype(np.uint8): torch.uint8,
+              np.dtype(np.uint16): torch.int16}   # u16 bits, 2 B/px
+
+
+def _raw_array(a) -> np.ndarray:
+    """An array of frames in a type the card converts (u8, u16, f32);
+    any other type becomes float32 on the host."""
+    a = np.asarray(a)
+    return a if a.dtype in _RAW_TYPES else a.astype(np.float32)
+
+
+class ArrayRows:
+    """Frames in host memory as rows [row0, row0 + len(array)) of a chunk
+    of ``rows`` frames, read like a ``ChunkRead``: ``read_into(out, lo,
+    hi)`` copies rows [lo, hi) (clipped to ``rows``) into ``out`` and
+    zeroes the ones it does not hold."""
+
+    def __init__(self, array: np.ndarray, row0: int = 0,
+                 rows: Optional[int] = None):
+        self.array = _raw_array(array)
+        self.row0 = row0
+        self.rows = row0 + len(self.array) if rows is None else rows
+        self.dtype = self.array.dtype
+
+    def read_into(self, out: np.ndarray, lo: int = 0,
+                  hi: Optional[int] = None) -> None:
+        hi = self.rows if hi is None else min(hi, self.rows)
+        a = max(lo, self.row0)
+        b = max(a, min(hi, self.row0 + len(self.array)))
+        out[:max(0, a - lo)] = 0
+        out[a - lo:b - lo] = self.array[a - self.row0:b - self.row0]
+        out[b - lo:max(0, hi - lo)] = 0
+
+
+def _as_float32(chunk: torch.Tensor) -> torch.Tensor:
+    """A staged chunk's frames as float32 (exact for u8 and u16)."""
+    if chunk.dtype == torch.float32:
+        return chunk
+    if chunk.dtype == torch.int16:         # u16 bits
+        return chunk.to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32)
+    return chunk.to(torch.float32)
+
+
+class _Slot:
+    """One staging buffer: ``frames`` (a chunk's raw frames) and ``trig``
+    (its sines and cosines), pinned when ``pinned``; ``event`` is the copy
+    that last read it, ``lock`` held from its hand-out to its copy."""
+
+    def __init__(self, shape, dtype, pinned: bool):
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned)
+        self.frames = self.buf.numpy().view(dtype).reshape(shape)
+        self.trig_t = torch.empty((2, shape[0]), dtype=torch.float32,
+                                  pin_memory=pinned)
+        self.trig = self.trig_t.numpy()
+        self.event = None
+        self.lock = threading.Lock()
+
+
+class _Ring:
+    """Preallocated pinned staging slots per (chunk shape, raw type),
+    handed out round robin.  A slot is handed out again only after the
+    copy that last read it has finished (its event), so the ring replaces
+    a pinned copy per chunk."""
+
+    def __init__(self, n_slots: int = _RING_SLOTS):
+        self.n_slots = n_slots
+        self._lock = threading.Lock()
+        self._rings = {}
+
+    def acquire(self, shape, dtype) -> _Slot:
+        """A slot, its lock held (released once its copy is enqueued),
+        after the copy that last read it has finished."""
+        key = (tuple(shape), np.dtype(dtype))
+        with self._lock:
+            ring, k = self._rings.get(key, ([], 0))
+            self._rings[key] = (ring, k + 1)
+            if len(ring) < self.n_slots:
+                ring.append(_Slot(shape, dtype, pinned=True))
+            slot = ring[k % self.n_slots]
+        slot.lock.acquire()
+        if slot.event is not None:
+            slot.event.synchronize()
+        return slot
 
 
 def resolve_backend(backend: str, device=None) -> Tuple[str, torch.device]:
@@ -179,13 +365,15 @@ class Reconstructor:
     """Single-device FDK for one (det, vol) geometry.
 
     ``chunk_size`` is the number of projections accumulated per volume
-    pass; ``block_shape`` the (dz, ny, nx) accumulator.  ``accuracy``:
-    "exact" stages and backprojects float32 projections; "fast" stages
-    per-frame affine u16 (half the host-to-device bytes) and hands the
-    filtered chunk to the kernel as bf16, with float32 arithmetic in the
-    kernel.  ``v_band_width``: weight, filter and backproject only that
-    many detector rows per step, the band a block of ``block_shape[0]``
-    slices samples (``_v_band_lo``); None = the whole detector.
+    pass; ``block_shape`` the (dz, ny, nx) accumulator.  Chunks are
+    staged in their stored type.  ``accuracy``: "exact" backprojects the
+    float32 projections; "fast" takes each frame through the per-frame
+    affine u16 quantization of the JAX package's host, on the device,
+    and hands the filtered chunk to the kernel as bf16, with float32
+    arithmetic in the kernel.  ``v_band_width``: weight, filter and
+    backproject only that many detector rows per step, the band a block
+    of ``block_shape[0]`` slices samples (``_v_band_lo``); None = the
+    whole detector.
     """
 
     def __init__(
@@ -219,6 +407,13 @@ class Reconstructor:
         self._weights = weight_map(det, self.device)
         self._spectrum = ramp_filter_spectrum(det.n_row, det.l_px_row,
                                               self.device)
+        # the chunk slots this process stages: all of them here, a rank's
+        # own in DistributedReconstructor
+        self._stage_rows = (0, self.chunk_size)
+        self._identity = {}
+        if self.device.type == "cuda":
+            self._ring = _Ring()
+            self._copy_stream = torch.cuda.Stream(self.device)
 
     # -- chunk iteration ----------------------------------------------------
 
@@ -253,14 +448,40 @@ class Reconstructor:
                 f"z={z0_global} (needs {hi - lo} rows)")
         return max(0, min(lo, n_col - self._vp))
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t
-        # pinned host copy + asynchronous h2d; PyTorch's pinned allocator
-        # records an event per copy, so the pinned buffer is not reused
-        # before its copy has finished
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _slot(self, shape, dtype) -> _Slot:
+        """A staging slot: a pinned ring slot on the card (locked until its
+        copy is enqueued), new host arrays on the CPU (the staged tensors
+        are their memory)."""
+        if self.device.type == "cuda":
+            return self._ring.acquire(shape, dtype)
+        slot = _Slot(shape, dtype, pinned=False)
+        slot.lock.acquire()
+        return slot
+
+    def _put(self, slot: _Slot, n: int, host) -> Staged:
+        """``slot`` on the device: on the card a copy on the copy stream,
+        then an event the step waits on and the slot's next use waits for;
+        on the CPU the slot's own memory."""
+        shape = slot.frames.shape
+        dtype = _RAW_TYPES[slot.frames.dtype]
+        try:
+            if self.device.type != "cuda":
+                return Staged(slot.buf.view(dtype).view(shape),
+                              slot.trig_t[0], slot.trig_t[1], n, None, host)
+            with torch.cuda.stream(self._copy_stream), annotate("h2d"):
+                dev = torch.empty(slot.buf.shape, dtype=torch.uint8,
+                                  device=self.device)
+                dev.copy_(slot.buf, non_blocking=True)
+                trig = torch.empty(slot.trig_t.shape, dtype=torch.float32,
+                                   device=self.device)
+                trig.copy_(slot.trig_t, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+            slot.event = ready
+            return Staged(dev.view(dtype).view(shape), trig[0], trig[1], n,
+                          ready, host)
+        finally:
+            slot.lock.release()
 
     # -- public API ---------------------------------------------------------
 
@@ -268,52 +489,93 @@ class Reconstructor:
         return torch.zeros(self.block_shape, dtype=torch.float32,
                            device=self.device)
 
-    def stage_chunk(self, chunk, ang):
-        """Start the host-to-device copy of one (chunk, angles) pair.
+    def stage_chunk(self, chunk, ang, *, timers=None,
+                    keep: bool = False) -> Staged:
+        """Stage one (chunk, angles) pair: this process's rows of the chunk
+        into a staging slot, in their raw type, then to the device.
 
-        Returns the (chunk, sin, cos, qparams) tensors ``step_staged``
-        consumes; keep them referenced until that step is enqueued.
+        ``chunk`` is an array of frames (u8, u16 and f32 kept, any other
+        type made float32), or anything with ``rows``, ``dtype`` and
+        ``read_into(out, lo, hi)``: a ``ChunkRead`` reads its frames from
+        the HIS files straight into the slot, an ``ArrayRows`` copies
+        them.  ``timers`` gets the fill's seconds as "read"; ``keep``
+        asks for the rows in host memory too (``Staged.host``).  Keep the
+        result referenced until its step is enqueued.
         """
-        C = self.chunk_size
-        chunk = np.asarray(chunk, dtype=np.float32)
-        ang = np.asarray(ang, dtype=np.float32)
-        if ang.shape[0] < C:
-            ang = np.pad(ang, (0, C - ang.shape[0]))
-        if self.accuracy == "fast":
-            chunk, qparams = quantize_chunk_u16(
-                chunk, C, concurrency=_STAGE_WORKERS)
-        else:
-            qparams = identity_qparams(C)
-            if chunk.shape[0] < C:
-                chunk = np.pad(
-                    chunk, ((0, C - chunk.shape[0]), (0, 0), (0, 0)))
-        phi = np.deg2rad(ang).astype(np.float32)
-        return tuple(self._put(a) for a in
-                     (chunk, np.sin(phi), np.cos(phi), qparams))
+        data = chunk if hasattr(chunk, "read_into") else ArrayRows(chunk)
+        lo, hi = self._stage_rows
+        n = max(0, min(hi, data.rows) - lo)
+        given = ang = np.asarray(ang, dtype=np.float32)
+        if ang.shape[0] < self.chunk_size:
+            ang = np.pad(ang, (0, self.chunk_size - ang.shape[0]))
+        phi = np.deg2rad(ang[lo:hi]).astype(np.float32)
+        slot = self._slot((hi - lo, self.det.n_col, self.det.n_row),
+                          data.dtype)
+        try:
+            with _timed(timers, "read"):
+                data.read_into(slot.frames, lo, hi)
+                slot.frames[n:] = 0
+            slot.trig[0] = np.sin(phi)
+            slot.trig[1] = np.cos(phi)
+            host = None
+            if keep:
+                rows = slot.frames[:n]
+                host = (ArrayRows(rows.copy() if self.device.type == "cuda"
+                                  else rows, lo, data.rows), given)
+        except BaseException:
+            slot.lock.release()
+            raise
+        return self._put(slot, n, host)
 
-    def _filter_band(self, chunk: torch.Tensor, qparams: torch.Tensor,
+    def _filter_band(self, chunk: torch.Tensor, n: int,
                      z0_global: int) -> Tuple[torch.Tensor, int]:
-        """Staged (n, n_col, n_row) frames -> (the band's rows, dequantized,
-        weighted and ramp-filtered, in the kernel's dtype; the band's first
-        detector row).  Dequantization and weighting are elementwise and
-        the filter runs along each detector row, so cutting the band first
-        gives the rows that cutting last would."""
+        """A staged (C, n_col, n_row) chunk, ``n`` of its frames data ->
+        (the band's rows as float32 frames, in fast mode through the u16
+        round trip of whole-frame qparams, dequantized, weighted and
+        ramp-filtered, in the kernel's dtype; the band's first detector
+        row).  Conversion, the round trip, dequantization and weighting
+        are elementwise once a frame's qparams are known, and the filter
+        runs along each detector row, so cutting the band first gives the
+        rows that cutting last would."""
         v_lo = self._v_band_lo(z0_global)
         rows = slice(v_lo, v_lo + self._vp)
-        filtered = preprocess_chunk(
-            dequantize_chunk(chunk[:, rows], qparams), self._weights[rows],
-            self._spectrum, self.det.n_row)
+        frames = _as_float32(chunk)
+        if self.accuracy == "fast":
+            qparams = _u16_params(frames, n)
+            band = u16_round_trip(frames[:, rows], qparams)
+        else:
+            band = dequantize_chunk(frames[:, rows],
+                                    self._identity_qparams(chunk.shape[0]))
+        filtered = preprocess_chunk(band, self._weights[rows],
+                                    self._spectrum, self.det.n_row)
         dtype = torch.bfloat16 if self.accuracy == "fast" else torch.float32
         return filtered.to(dtype).contiguous(), v_lo
+
+    def _identity_qparams(self, c: int) -> torch.Tensor:
+        if c not in self._identity:
+            self._identity[c] = torch.from_numpy(identity_qparams(c)).to(
+                self.device)
+        return self._identity[c]
+
+    def _ready(self, staged: Staged) -> Staged:
+        """Make the current stream wait for ``staged``'s copy (that event
+        alone), and tell the allocator the copy stream's tensors are used
+        here."""
+        if staged.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.ready)
+            staged.chunk.record_stream(stream)
+            staged.sin.record_stream(stream)
+        return staged
 
     def step_staged(self, volume: torch.Tensor, staged, *,
                     z_offset: int = 0,
                     roi_offset: Tuple[int, int, int] = (0, 0, 0)
                     ) -> torch.Tensor:
-        """Accumulate one staged chunk into ``volume`` IN PLACE."""
-        chunk, sin, cos, qparams = staged
+        """Accumulate one ``Staged`` chunk into ``volume`` IN PLACE."""
+        chunk, sin, cos, n = self._ready(staged)[:4]
         rx1, ry1, rz1 = roi_offset
-        filtered, v_lo = self._filter_band(chunk, qparams, rz1 + z_offset)
+        filtered, v_lo = self._filter_band(chunk, n, rz1 + z_offset)
         return backproject_chunk(volume, filtered, sin, cos, self.grid,
                                  z_offset=rz1 + z_offset,
                                  roi_offset=(rx1, ry1, 0), v_lo=v_lo)

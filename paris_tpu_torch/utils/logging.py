@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 from typing import Dict, Optional
 
@@ -26,11 +27,18 @@ def fmt_duration(seconds: float) -> str:
 
 
 class StageTimers:
-    """Accumulating named wall-clock timers."""
+    """Accumulating named wall-clock timers; threads may time into one
+    (the staging workers' "read" beside the consumer's)."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, seconds: float, count: int = 1) -> None:
+        with self._lock:
+            self.totals[name] = self.totals.get(name, 0.0) + seconds
+            self.counts[name] = self.counts.get(name, 0) + count
 
     @contextlib.contextmanager
     def time(self, name: str):
@@ -38,9 +46,12 @@ class StageTimers:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            self.add(name, time.perf_counter() - t0)
+
+    def merge(self, other: "StageTimers") -> None:
+        """Add ``other``'s totals and counts to these."""
+        for name, seconds in list(other.totals.items()):
+            self.add(name, seconds, other.counts[name])
 
     def report(self, log: Optional[logging.Logger] = None) -> str:
         lines = [

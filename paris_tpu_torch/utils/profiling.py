@@ -30,9 +30,10 @@ __all__ = ["trace", "annotate", "ThroughputMeter"]
 def trace(trace_dir: Optional[str] = None,
           device: Optional[torch.device] = None):
     """Profile the enclosed region into a new Chrome-trace file in
-    ``trace_dir`` (no-op if None).  Records host activity, and the card's
-    kernels and copies when ``device`` is a CUDA device (by default: when a
-    card is present)."""
+    ``trace_dir`` (no-op if None).  Records host activity on every thread
+    (the staging workers name each copy of the pinned ring "h2d"), and
+    the card's kernels and copies when ``device`` is a CUDA device (by
+    default: when a card is present)."""
     if not trace_dir:
         yield
         return
@@ -42,7 +43,11 @@ def trace(trace_dir: Optional[str] = None,
     if on_card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
+    # every thread: the staging workers' "h2d" ranges are the ring's copies
+    prof = torch.profiler.profile(
+        activities=activities,
+        experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True))
     prof.start()
     try:
         yield

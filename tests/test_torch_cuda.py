@@ -535,3 +535,147 @@ def test_run_configs_on_card(cuda_device, config):
     res = rc.CONFIGS[config]()
     assert res["pass"] and 0 < res["rel_rmse_vs_golden"] <= 1e-3
     assert res["device"] == torch.cuda.get_device_name(cuda_device)
+
+
+# ------------------------------------------------------------- ingest
+
+@pytest.mark.cuda
+def test_ring_reuses_a_slot_only_after_its_copy(cuda_device):
+    """Eight times the staging depth of distinct chunks, staged by
+    stage_stream's two workers through a ring of four pinned slots per
+    shape: every staged chunk on the card holds its own frames (a slot
+    refilled before its copy finished would show another chunk's), read
+    on the default stream after waiting on that chunk's event alone; the
+    ring never holds more than its slots."""
+    from paris_tpu_torch import pipeline
+    det = DetectorGeometry(512, 512, 1.0, 1.0, 0.0, 0.0, 4096.0, 2048.0,
+                           1.0)
+    rec = pipeline.Reconstructor(det, derive_volume_geometry(det),
+                                 chunk_size=8, backend="cuda")
+    depth = 4
+    n = 8 * depth
+    pairs = ((np.full((8, 512, 512), k, np.uint16),
+              np.full(8, k, np.float32)) for k in range(n))
+    sums = []
+    for k, (staged, _) in enumerate(pipeline.stage_stream(
+            rec.stage_chunk, pairs, depth=depth, workers=2)):
+        rec._ready(staged)
+        frames = pipeline._as_float32(staged.chunk)
+        sums.append((frames.min(), frames.max(),
+                     staged.sin[0] == np.sin(np.deg2rad(np.float32(k)))))
+    for k, (lo, hi, sin_ok) in enumerate(sums):
+        assert lo.item() == hi.item() == k and bool(sin_ok), k
+    rings = rec._ring._rings
+    assert len(rings) == 1
+    assert all(len(ring) == pipeline._RING_SLOTS for ring, _ in
+               rings.values())
+
+
+def _ties(n, h, w):
+    f = np.zeros((n, h, w), np.float32)
+    f[0] = 65535.0
+    f[0, 0, :7] = [0.0, 0.5, 1.5, 2.5, 65533.5, 65534.5, 65535.0]
+    for i, width in ((1, 1.9341504e-34), (2, 1e-38)):
+        f[i] = np.linspace(0, np.float32(width), h * w,
+                           dtype=np.float32).reshape(h, w)
+        f[i].flat[-1] = np.float32(width)
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 4], ids=["full", "padded_tail"])
+@pytest.mark.parametrize("case", ["u16", "f32", "constant_and_zero",
+                                  "ties_and_top"])
+def test_card_quantization_equals_the_native_quantizer(cuda_device, case, n):
+    """The fast mode's u16 quantization on the card equals the native
+    quantizer bit for bit, codes and qparams, and the round trip equals
+    dequantize_chunk of its codes."""
+    from paris_tpu_torch.io import native
+    from paris_tpu_torch.pipeline import (dequantize_chunk,
+                                          quantize_u16_torch, u16_round_trip)
+    rng = np.random.default_rng(31)
+    shape = (6, 256, 256)
+    if case == "u16":
+        f = rng.integers(0, 65536, shape).astype(np.float32)
+    elif case == "f32":
+        f = rng.uniform(-300, 9000, shape).astype(np.float32)
+    elif case == "constant_and_zero":
+        f = rng.uniform(0, 1, shape).astype(np.float32)
+        f[1], f[2], f[4] = 7.25, 0.0, -3.5
+    else:
+        f = _ties(*shape)
+    f[n:] = 0
+    q = np.zeros(shape, np.uint16)
+    qp = np.zeros((6, 2), np.float32)
+    native.quantize_u16(np.ascontiguousarray(f[:n]), q, qp, n_threads=1)
+    x = torch.from_numpy(f).to(cuda_device)
+    tq, tqp = quantize_u16_torch(x, n)
+    np.testing.assert_array_equal(tq.cpu().numpy().astype(np.uint16), q)
+    np.testing.assert_array_equal(tqp.cpu().numpy().view(np.uint32),
+                                  qp.view(np.uint32))
+    before = u16_round_trip.launches
+    got = u16_round_trip(x, tqp)
+    assert u16_round_trip.launches == before + 1
+    want = dequantize_chunk(torch.from_numpy(q.astype(np.float32)),
+                            torch.from_numpy(qp))
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accuracy", ["fast", "exact"])
+def test_card_cache_job_equals_the_uncached_job(cuda_device, tmp_path,
+                                                monkeypatch, accuracy):
+    """A three-block job on the card from u16 HIS files with its cache on
+    the card (later blocks from the staged chunks, no reads), and with it
+    on the host (a margin no card has: later blocks staged again through
+    the ring), writes the bytes the job without a cache writes."""
+    import logging
+    from paris_tpu_torch import app
+    from paris_tpu_torch.app import ReconstructionJob, run_job
+    from paris_tpu_torch.io import his
+    from paris_tpu_torch.io.his import write_his
+    det = BASE
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 60000, (40, det.n_col, det.n_row)).astype(
+        np.uint16)
+    pdir = tmp_path / "proj"
+    pdir.mkdir()
+    for i in range(0, 40, 8):
+        write_his(str(pdir / f"b{i:03d}.his"), frames[i:i + 8],
+                  number_dtype=np.uint16)
+    outs, decoded, logs = {}, {}, {}
+    for label, cache in (("card", None), ("host", True), ("off", False)):
+        monkeypatch.setattr(app, "CARD_CACHE_MARGIN",
+                            1 << 50 if label == "host" else 2 << 30)
+        messages = []
+
+        class Tap(logging.Handler):
+            def emit(self, record):
+                messages.append(record.getMessage())
+        tap = Tap(logging.INFO)
+        log = logging.getLogger("paris_tpu_torch.app")
+        level = log.level
+        log.setLevel(logging.INFO)
+        log.addHandler(tap)
+        try:
+            before = his.DECODE_STATS["frames"]
+            path = run_job(ReconstructionJob(
+                det=det, input_path=str(pdir), output_path=str(tmp_path),
+                prefix=label, chunk_size=16, backend="cuda",
+                accuracy=accuracy, block_dz=24, cache_projections=cache))
+            decoded[label] = his.DECODE_STATS["frames"] - before
+        finally:
+            log.removeHandler(tap)
+            log.setLevel(level)
+        logs[label] = "\n".join(messages)
+        with open(path, "rb") as f:
+            outs[label] = f.read()
+    assert outs["card"] == outs["host"] == outs["off"]
+    assert "projection cache: on the card" in logs["card"]
+    assert "ingest from the card cache" in logs["card"]
+    assert "projection cache: on the host" in logs["host"]
+    assert "ingest from the host cache" in logs["host"]
+    n_blocks = logs["off"].count("ingest from the HIS files")
+    assert n_blocks >= 2 and decoded == {"card": 40, "host": 40,
+                                         "off": n_blocks * 40}

@@ -34,7 +34,8 @@ from paris_tpu_torch.geometry import (DetectorGeometry, RegionOfInterest,
 from paris_tpu_torch.parallel import dist as dist_mod
 from paris_tpu_torch.parallel import multihost
 from paris_tpu_torch.parallel.dist import DistributedReconstructor, owned_slots
-from paris_tpu_torch.pipeline import Reconstructor, quantize_chunk_u16
+from paris_tpu_torch.pipeline import (ArrayRows, Reconstructor,
+                                     quantize_chunk_u16, quantize_u16_torch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -158,9 +159,11 @@ def test_owned_slots_partition(world):
 
 
 def test_stage_chunk_reads_only_own_slots(group, monkeypatch):
-    """Rank 1 of 2 quantizes and stages only slots [4, 8): its rows equal a
-    whole-chunk quantization's, and slots past the stream's end are zero
-    (tests/test_distributed.py:446)."""
+    """Rank 1 of 2 stages only slots [4, 8), raw: it asks the chunk for
+    those rows alone (the others, NaN here, are never read), its rows are
+    the frames as given and slots past the stream's end are zero; their
+    u16 quantization on its device equals a whole-chunk quantization's
+    rows, padding (0, 0) (tests/test_distributed.py:446)."""
     monkeypatch.setattr(dist_mod, "world_and_rank", lambda group=None: (2, 1))
     det = DetectorGeometry(64, 64, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 45.0)
     vol = derive_volume_geometry(det)
@@ -170,15 +173,29 @@ def test_stage_chunk_reads_only_own_slots(group, monkeypatch):
     rng = np.random.default_rng(3)
     data = rng.uniform(-5, 900, (6, 64, 64)).astype(np.float32)
     angs = np.arange(6, dtype=np.float32) * 45.0
-    q, sin, _, qp = rec.stage_chunk(data, angs)
+    poisoned = data.copy()
+    poisoned[:4] = np.nan
+    asked = []
+
+    class Rows(ArrayRows):
+        def read_into(self, out, lo=0, hi=None):
+            asked.append((lo, hi))
+            super().read_into(out, lo, hi)
+
+    staged = rec.stage_chunk(Rows(poisoned), angs)
+    assert asked == [(4, 8)]
+    assert staged.chunk.shape == (4, 64, 64) and staged.sin.shape == (4,)
+    assert staged.n == 2 and staged.chunk.dtype == torch.float32
+    np.testing.assert_array_equal(staged.chunk[:2].numpy(), data[4:6])
+    np.testing.assert_array_equal(staged.chunk[2:].numpy(), 0)
+    q, qp = quantize_u16_torch(staged.chunk, staged.n)
     full_q, full_p = quantize_chunk_u16(data, 8)
-    assert q.shape == (4, 64, 64) and sin.shape == (4,)
     np.testing.assert_array_equal(q[:2].numpy(), full_q[4:6])
     np.testing.assert_array_equal(qp[:2].numpy(), full_p[4:6])
     np.testing.assert_array_equal(q[2:].numpy(), 0)
     np.testing.assert_array_equal(qp[2:].numpy(), 0.0)
     np.testing.assert_array_equal(
-        sin.numpy(), np.sin(np.deg2rad(np.pad(angs, (0, 2))[4:])))
+        staged.sin.numpy(), np.sin(np.deg2rad(np.pad(angs, (0, 2))[4:])))
 
 
 def test_agree_min_with_none(group):
