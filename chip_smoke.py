@@ -38,11 +38,20 @@ Phases (each raises on failure; the script then exits non-zero):
      job, fast mode with --trace-dir, must write one torch.profiler trace
      per block, each holding the block's kernel launches; from them it
      prints the summed kernel and memcpy time and the device busy share
-     of the traced windows.  Each job prints its projection cache's lines
-     and its ingest split per block (reconstruct, read, stage_wait,
-     step_enqueue, card_wait seconds; block 1 comes from the card cache),
-     and the u16 round trip must run once per chunk in fast mode, never
-     in exact mode.
+     of the traced windows (each block's reconstruct stage, then its
+     wait for the previous block's drain).  Each job prints its
+     projection cache's lines and its ingest split per block
+     (reconstruct, read, stage_wait, step_enqueue, card_wait seconds;
+     block 1 comes from the card cache), and the u16 round trip must run once per chunk in fast mode, never
+     in exact mode.  Each job prints its drain split per block (d2h on
+     the card, write, wait seconds, slabs, the ring's pinned bytes: every
+     block drains slab by slab through a ring of pinned slots on a copy
+     stream, paris_tpu_torch/io/drain.py) and block 1's enqueue seconds
+     while block 0 drains; the traced job's traces must show the drain's
+     DtoH copies, on a stream other than K1's.  Then one config-3
+     accumulator (512 slices, 500 of them valid) of seeded values is
+     drained into a new ddbvf, which must equal volume.cpu() of those
+     slices byte for byte; the drain's seconds, split and pinned bytes.
   4. the gather micro-benchmarks K3a and K3b: every (mode, S) of
      gather_micro.main and every mode of gather_micro2.main, kernel
      against plain version on the card at the benchmark's inputs and at
@@ -105,7 +114,8 @@ Phases (each raises on failure; the script then exits non-zero):
         group); every RMSE gate is fatal;
      c. config3_stream at 1024 over 360 frames, fast, its kernel-only
         rate the bench fast value of 7a (PARIS_BENCH_KERNEL_GUPS): the RMSE
-        gate is fatal, the 2x rate gate is printed with its verdict;
+        gate is fatal, the 2x rate gate is printed with its verdict, and
+        its drain split (one per block, or the phase fails);
      d. dist_parity_ab (--quality 1) and dist_overlap_ab at --size 512
         over one 360-frame scan written once: byte equality of the two
         drivers' outputs is fatal, the ratio gates are printed;
@@ -513,8 +523,9 @@ def phase_quantize():
     return max_err, (ms, plain_ms, bound, "bytes")
 
 
-def _log_ingest(tap, label):
-    """Print the job's ingest split per block and its cache lines."""
+def _log_splits(tap, label):
+    """Print the job's cache lines, and its ingest and drain splits per
+    block."""
     for line in tap.cache:
         print(f"  {label}: {line}")
     for b in tap.ingest:
@@ -524,6 +535,17 @@ def _log_ingest(tap, label):
               f"{b['stage_wait_s']:.3f} s, step_enqueue "
               f"{b['step_enqueue_s']:.3f} s ({b['steps']} steps), card_wait "
               f"{b['card_wait_s']:.3f} s")
+    _log_drain(tap.drain, label)
+
+
+def _log_drain(drains, label):
+    """Print a job's drain split per block."""
+    for d in drains:
+        print(f"  {label}: block {d['block']} drain: d2h {d['d2h_s']:.3f} s "
+              f"on the card, write {d['write_s']:.3f} s, wait "
+              f"{d['wait_s']:.3f} s ({d['slabs']} slabs of "
+              f"{d['slab_slices']} slices; ring {d['pinned_bytes']} pinned "
+              "bytes)")
 
 
 def _reset_counts():
@@ -637,14 +659,75 @@ def phase_end_to_end(workdir):
         print(f"  {label}: {seconds:.2f} s per job ({gups:.2f} Gupd/s end to "
               f"end), {n_blocks} blocks, {launched} launches, relative RMSE "
               + ", ".join(f"{k} {v:.2e}" for k, v in rmse.items()))
-        _log_ingest(tap, label)
+        _log_splits(tap, label)
+        if len(tap.ingest) < 2 or len(tap.drain) != n_blocks:
+            raise AssertionError(f"{label}: {len(tap.ingest)} ingest and "
+                                 f"{len(tap.drain)} drain splits in the log")
+        b1 = tap.ingest[1]
+        print(f"  {label}: block 1 (from the {b1['from']}) enqueued its "
+              f"{b1['steps']} steps in {b1['step_enqueue_s']:.3f} s while "
+              "block 0 drained (0.81-0.84 s on an H100 at 700 W when "
+              "one pageable copy drained a block)")
         results[label] = seconds
     launches = _counts()
     _read_traces(trace_dir, n_blocks, per_job // n_blocks)
+    # a tail block's valid slices: not a whole number of slabs
+    _drain_equality(workdir, BLOCK_DZ, BLOCK_DZ - 12)
     job = dict(geo=geo, pdir=pdir, golden=golden, per_job=per_job,
                fast_out=os.path.join(workdir, "c3fast.ddbvf"),
                fast_s=results["fast"])
     return launches, results, job
+
+
+def _drain_equality(workdir, dz, dim_z):
+    """One config-3 accumulator (dz, 1024, 1024) of seeded values on the
+    card, its first ``dim_z`` slices drained slab by slab through the
+    job's ``BlockDrain`` into a new ddbvf: byte for byte ``volume.cpu()``
+    of them (the composition before the drain), read back.  Prints the
+    drain's seconds, split and pinned bytes."""
+    import numpy as np
+    import torch
+    from paris_tpu_torch.io import ddbvf
+    from paris_tpu_torch.io.drain import DRAIN_SLOTS, BlockDrain
+    from paris_tpu_torch.utils.logging import StageTimers
+    _, vol = _config3()
+    shape = (dz, vol.dim_y, vol.dim_x)
+    device = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device).manual_seed(9)
+    volume = torch.randn(shape, generator=gen, device=device)
+    drain = BlockDrain(device, shape[1:], dz)
+    path = ddbvf.create(os.path.join(workdir, "drain.ddbvf"), vol.dim_x,
+                        vol.dim_y, dim_z)
+    split = StageTimers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ready = torch.cuda.Event()
+    ready.record()
+    drain.drain(volume, path, 0, dim_z, ready=ready, split=split)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = volume[:dim_z].cpu().numpy()
+    cpu_s = time.perf_counter() - t0
+    got = np.memmap(path, np.float32, "r", offset=ddbvf.DATA_START,
+                    shape=want.shape)
+    same = bool(np.array_equal(got.view(np.uint32), want.view(np.uint32)))
+    del got
+    os.remove(path)
+    t, c = split.totals, split.counts
+    print(f"  drain of one {shape} block, {dim_z} valid slices: "
+          f"{seconds:.3f} s (d2h {t.get('d2h', 0.0):.3f} s on the card, "
+          f"write {t.get('write', 0.0):.3f} s, wait "
+          f"{t.get('copy_wait', 0.0):.3f} s; {c.get('write', 0)} slabs of "
+          f"{drain.slices} slices; ring {drain.pinned_bytes} pinned bytes); "
+          f"volume.cpu() of them alone {cpu_s:.3f} s; byte-identical to "
+          f"volume.cpu(): {same}")
+    if not same:
+        raise AssertionError("the slab drain's ddbvf differs from "
+                             "volume.cpu() of the block")
+    if drain.pinned_bytes > DRAIN_SLOTS * (4 * drain.slices * vol.dim_y
+                                          * vol.dim_x + 4096):
+        raise AssertionError(f"the drain pinned {drain.pinned_bytes} bytes, "
+                             "more than its ring")
 
 
 def _busy_us(intervals):
@@ -660,13 +743,17 @@ def _busy_us(intervals):
 def _read_traces(trace_dir, n_blocks, chunks):
     """The traced job's Chrome traces: one per block, each with the
     block's kernel launches; prints the device's kernel and memcpy time
-    and its busy share of the traced windows."""
+    and its busy share of the reconstruct windows (each trace up to its
+    "drain_wait" range) and, apart, of the drain-wait windows (the job
+    waiting for the previous block's drain)."""
     files = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
     if len(files) != n_blocks:
         raise AssertionError(f"traced job wrote {len(files)} trace files, "
                              f"expected one per block ({n_blocks})")
-    sums = dict.fromkeys(("window", "kernel", "HtoD", "DtoH", "busy", "h2d"),
+    sums = dict.fromkeys(("window", "kernel", "HtoD", "DtoH", "busy", "h2d",
+                          "d2h", "DtoH copies", "wait window", "wait busy"),
                          0.0)
+    streams = {"kernel": set(), "DtoH": set()}
     for path in files:
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"]
@@ -678,32 +765,69 @@ def _read_traces(trace_dir, n_blocks, chunks):
             raise AssertionError(
                 f"{os.path.basename(path)}: {len(bp)} backprojection "
                 f"kernels in the trace, expected {chunks}")
+        (wait,) = [e for e in events if e["name"] == "drain_wait" and
+                   str(e.get("cat", "")).lower() == "user_annotation"]
+        start = min(e["ts"] for e in events)
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in device]
         us = {
-            "window": (max(e["ts"] + e["dur"] for e in events)
-                       - min(e["ts"] for e in events)),
+            "window": wait["ts"] - start,
             "kernel": sum(e["dur"] for e in device
                           if str(e["cat"]).lower() == "kernel"),
             "HtoD": sum(e["dur"] for e in device if "HtoD" in e["name"]),
             "DtoH": sum(e["dur"] for e in device if "DtoH" in e["name"]),
-            "busy": _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in device]),
+            "busy": _busy_us([(a, min(b, wait["ts"])) for a, b in spans
+                              if a < wait["ts"]]),
             "h2d": sum(e["name"] == "h2d" for e in events),
+            "d2h": sum(e["name"] == "d2h" for e in events),
+            "DtoH copies": sum("DtoH" in e["name"] for e in device),
+            "wait window": wait["dur"],
+            "wait busy": _busy_us([
+                (max(a, wait["ts"]), min(b, wait["ts"] + wait["dur"]))
+                for a, b in spans
+                if b > wait["ts"] and a < wait["ts"] + wait["dur"]]),
         }
+        for e in device:
+            stream = e.get("args", {}).get("stream")
+            if "bp_kernel" in e["name"]:
+                streams["kernel"].add(stream)
+            elif "DtoH" in e["name"]:
+                streams["DtoH"].add(stream)
         print(f"  trace {os.path.basename(path)}: "
               + ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in us.items()
-                          if k != "h2d")
-              + f", device busy {us['busy'] / us['window']:.1%}, "
-              f"{us['h2d']} ring copies named h2d")
+                          if k not in ("h2d", "d2h", "DtoH copies"))
+              + f", device busy {us['busy'] / us['window']:.1%} of the "
+              f"reconstruct window and {_share(us, 'wait '):.1%} of the "
+              "drain wait, "
+              f"{us['h2d']} ring copies named h2d, {us['d2h']} drain "
+              f"copies named d2h, {us['DtoH copies']} DtoH copies")
         for k in sums:
             sums[k] += us[k]
     if not sums["h2d"]:
         raise AssertionError("no ring copy named h2d in the traces")
+    # block k drains while block k+1 is traced: its slabs' copies run on
+    # the drain's copy stream, not the kernels'
+    print(f"  traced job: {sums['d2h']:.0f} drain copies named d2h, "
+          f"{sums['DtoH copies']:.0f} DtoH copies on stream(s) "
+          f"{sorted(map(str, streams['DtoH']))}, K1 on stream(s) "
+          f"{sorted(map(str, streams['kernel']))}")
+    if not sums["DtoH copies"] or streams["DtoH"] & streams["kernel"]:
+        raise AssertionError("the traces show no drain copy on a copy "
+                             "stream of its own")
     share = sums["busy"] / sums["window"]
     print(f"  traced job, {sums['h2d']:.0f} ring copies named h2d; "
           f"{n_blocks} reconstruct windows of "
           f"{sums['window'] / 1e6:.3f} s: kernels {sums['kernel'] / 1e3:.1f} "
           f"ms, memcpy HtoD {sums['HtoD'] / 1e3:.1f} ms, DtoH "
-          f"{sums['DtoH'] / 1e3:.1f} ms; device busy share {share:.1%} "
-          f"(idle {1 - share:.1%})")
+          f"{sums['DtoH'] / 1e3:.1f} ms (both windows); device busy share "
+          f"{share:.1%} of the reconstruct windows (idle {1 - share:.1%}); "
+          f"drain-wait windows of {sums['wait window'] / 1e6:.3f} s, busy "
+          f"{_share(sums, 'wait '):.1%}")
+
+
+def _share(us, prefix):
+    """Busy share of a window (0 for an empty one)."""
+    window = us[prefix + "window"]
+    return us[prefix + "busy"] / window if window else 0.0
 
 
 # ns per (64, 128) gather (the empty loop not subtracted) of the kernels
@@ -926,7 +1050,7 @@ def phase_distributed(workdir, job):
         raise AssertionError(f"--distributed: kernel launched {launched} "
                              f"times, the u16 round trip {trips}, expected "
                              f"{job['per_job']}")
-    _log_ingest(tap, "--distributed")
+    _log_splits(tap, "--distributed")
     out = os.path.join(workdir, "c3dist.ddbvf")
     rmse = _gate_job("--distributed", out, vol, job["golden"])
     same = _same_bytes(out, job["fast_out"])
@@ -1068,7 +1192,7 @@ def phase_config5(workdir):
             f"config 5: kernel launched {launched} times, the u16 round "
             f"trip {trips}, expected {len(blocks)} blocks x "
             f"{per_job // len(blocks)} chunks")
-    _log_ingest(tap, "config 5")
+    _log_splits(tap, "config 5")
     if not any(line.startswith("projection cache: on the card")
                for line in tap.cache) or [b["from"] for b in tap.ingest] != [
                    "HIS files"] + ["card cache"] * (len(blocks) - 1):
@@ -1298,6 +1422,11 @@ def phase_benchmarks(workdir, disk):
               f"{b['read_s']:.3f} s, stage_wait {b['stage_wait_s']:.3f} s, "
               f"step_enqueue {b['step_enqueue_s']:.3f} s, card_wait "
               f"{b['card_wait_s']:.3f} s")
+    if len(res["drain_split"]) != res["blocks"]:
+        raise AssertionError(f"config3_stream: drain_split "
+                             f"{res['drain_split']} for {res['blocks']} "
+                             "block(s)")
+    _log_drain(res["drain_split"], "config3_stream")
     if not res["pass_rmse"]:
         raise AssertionError("config3_stream: the RMSE gate failed")
 

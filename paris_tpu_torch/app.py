@@ -16,17 +16,20 @@
     when it fits beside the plan's accumulators (later blocks then do no
     host or copy work), else on the host under ``resolve_cache_cap``
     (staged again through the ring), else nowhere (read again);
-  * block k's device-to-host copy and ddbvf write run on a writer thread,
-    on a copy stream of their own, while block k+1 reconstructs — when two
-    accumulators fit the card's free memory.  Unless the extent is forced,
-    it is cut so that they do.  ``PARIS_WRITE_OVERLAP=0`` turns both off.
+  * each block drains to the ddbvf slab by slab on a writer thread
+    (``io/drain.py``: on the card, async copies into a job-long ring of
+    pinned slots on a copy stream of their own, each slot pwritten at its
+    global z while the next slabs copy); it is marked done in the
+    manifest after its last slab.  Block k drains while block k+1
+    reconstructs when two accumulators fit the card's free memory.
+    Unless the extent is forced, it is cut so that they do.
+    ``PARIS_WRITE_OVERLAP=0`` turns both off.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
-import contextlib
 import dataclasses
 import functools
 import logging
@@ -44,12 +47,13 @@ from .geometry import (
     DetectorGeometry, RegionOfInterest, SubvolumeInfo, VolumeGeometry,
     apply_roi, derive_volume_geometry, detector_row_band, plan_z_blocks,
 )
+from .io.drain import BlockDrain
 from .io.sink import VolumeSink
 from .io.source import ProjectionSource
 from .utils.logging import StageTimers, fmt_duration
 from .pipeline import (Reconstructor, _STAGE_WORKERS, resolve_backend,
                        stage_stream)
-from .utils.profiling import ThroughputMeter, trace
+from .utils.profiling import ThroughputMeter, annotate, trace
 
 logger = logging.getLogger("paris_tpu_torch.app")
 
@@ -80,7 +84,8 @@ class ReconstructionJob:
     # cap of the host projection cache; None = the smaller of 64 GiB and
     # half of the host's available memory (``resolve_cache_cap``)
     max_cache_bytes: Optional[int] = None
-    # one torch.profiler Chrome trace per block's reconstruct stage
+    # one torch.profiler Chrome trace per block: its reconstruct stage,
+    # then the wait for the previous block's drain (a "drain_wait" range)
     trace_dir: Optional[str] = None
     # Stop after computing this many NEW blocks (None = all); completed
     # blocks are durable in the sink manifest, so re-running with
@@ -90,8 +95,8 @@ class ReconstructionJob:
 
 def _block_hbm_bytes(vol_geo: VolumeGeometry, dz: int) -> int:
     """Device bytes of one z-block accumulator: (dz, ny, nx) float32,
-    unpadded.  Finalize is a d2h copy of this contiguous tensor, which
-    makes no device copy."""
+    unpadded.  The drain copies slabs of this contiguous tensor to the
+    host, which makes no device copy."""
     return 4 * dz * vol_geo.dim_y * vol_geo.dim_x
 
 
@@ -452,19 +457,6 @@ class _ProjectionCache:
                         "later blocks", nbytes)
 
 
-@contextlib.contextmanager
-def _after(ready, copy_stream):
-    """Run the enclosed copies on ``copy_stream`` once it has waited for
-    ``ready`` (the block's last step); on the CPU (ready None), as they
-    are."""
-    if ready is None:
-        yield
-        return
-    with torch.cuda.stream(copy_stream):
-        copy_stream.wait_event(ready)
-        yield
-
-
 def _reconstruct_block(rec, job: ReconstructionJob, block, info,
                        vol_geo: VolumeGeometry, cache: _ProjectionCache,
                        timers: StageTimers, chunks, *, first: bool):
@@ -483,7 +475,7 @@ def _reconstruct_block(rec, job: ReconstructionJob, block, info,
     meter = ThroughputMeter(block.dim_z * vol_geo.dim_y * vol_geo.dim_x)
     split = StageTimers()            # this block's ingest split
     enqueued = collections.deque()   # events after the steps in flight
-    with split.time("reconstruct"), trace(job.trace_dir, device):
+    with split.time("reconstruct"):
         # consumed on THIS thread; reads into the staging ring and the
         # copies to the card run on stage_stream's worker threads
         for staged, k in cache.staged(rec, chunks, split):
@@ -535,6 +527,25 @@ def _log_ingest(block, split: StageTimers, origin: str) -> None:
                 t["reconstruct"], t.get("read", 0.0), c.get("read", 0),
                 t.get("stage_wait", 0.0), t.get("step_enqueue", 0.0),
                 c.get("step_enqueue", 0), t.get("card_wait", 0.0))
+
+
+def _drain_block(drain: BlockDrain, write, block, timers: StageTimers
+                 ) -> None:
+    """Run ``write(split)``, the block's drain through ``drain``, as the
+    job's "finalize+write" stage; merge its split into ``timers`` and log
+    it: "d2h", the slabs' copies on the card (CUDA events; 0 on the CPU);
+    "write", the host seconds of the pwrites; "wait", the writer waiting
+    on a slab's copy (the copy holds the write back)."""
+    split = StageTimers()
+    with timers.time("finalize+write"):
+        write(split)
+    timers.merge(split)
+    t, c = split.totals, split.counts
+    logger.info("block %d drain: d2h %.3f s, write %.3f s, wait %.3f s "
+                "(%d slabs of %d slices, %d pinned bytes)", block.index,
+                t.get("d2h", 0.0), t.get("write", 0.0),
+                t.get("copy_wait", 0.0), c.get("write", 0), drain.slices,
+                drain.pinned_bytes)
 
 
 def _log_block_done(block, meter) -> None:
@@ -599,7 +610,6 @@ def _run_job(job: ReconstructionJob) -> str:
         raise StageConstructionError(str(e)) from e
     logger.info("backend: %s on %s, chunk size %d, accuracy %s",
                 rec.backend, device, rec.chunk_size, rec.accuracy)
-    on_card = device.type == "cuda"
 
     cache = _ProjectionCache(plan.cache)
     n_done = 0
@@ -607,16 +617,21 @@ def _run_job(job: ReconstructionJob) -> str:
     if overlap and info.num > 1:
         logger.info("write overlap: block k+1 reconstructs while "
                     "block k drains to disk")
-    copy_stream = torch.cuda.Stream(device) if on_card else None
+    # one ring of pinned slots for every block of the job
+    drain = BlockDrain(device, (vol_geo.dim_y, vol_geo.dim_x),
+                       info.dim_z_padded)
     writer = concurrent.futures.ThreadPoolExecutor(
         1, thread_name_prefix="paris-write")
     pending: Optional[concurrent.futures.Future] = None
 
     def _finalize_write(vol_state, blk, ready):
-        with timers.time("finalize+write"):
-            with _after(ready, copy_stream):
-                out = rec.finalize(vol_state)
-            sink.write_block(blk.index, out[: blk.dim_z], blk.z0)
+        def write(split):
+            drain.drain(vol_state, sink.path, blk.z0, blk.dim_z, ready=ready,
+                        split=split)
+            # only after the last slab: a drain that fails leaves the
+            # block to be rewritten whole on resume
+            sink.mark_done(blk.index)
+        _drain_block(drain, write, blk, timers)
 
     try:
         for block in info.blocks:
@@ -631,15 +646,18 @@ def _run_job(job: ReconstructionJob) -> str:
                             "resume=True completes the remaining blocks",
                             n_done)
                 break
-            volume, ready, meter = _reconstruct_block(
-                rec, job, block, info, vol_geo, cache, timers,
-                lambda: _source_chunks(source, rec.chunk_size),
-                first=n_done == 0)
-            if pending is not None:
+            with trace(job.trace_dir, device):
+                volume, ready, meter = _reconstruct_block(
+                    rec, job, block, info, vol_geo, cache, timers,
+                    lambda: _source_chunks(source, rec.chunk_size),
+                    first=n_done == 0)
                 # bound in-flight accumulators at 2 (this block's + the
-                # one draining); also surfaces writer-thread errors
-                pending.result()
-                pending = None
+                # one draining); also surfaces writer-thread errors.  In
+                # the block's trace, which so holds the drain's copies
+                with annotate("drain_wait"):
+                    if pending is not None:
+                        pending.result()
+                        pending = None
             pending = writer.submit(_finalize_write, volume, block, ready)
             # drop the loop's reference now: without overlap the wait
             # below frees the accumulator before the next init_block

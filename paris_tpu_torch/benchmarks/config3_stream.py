@@ -22,8 +22,10 @@ decode, staging, weight, filter, K1, ddbvf, with the job's own plan.
   * the timed job: its ``StageTimers`` split (``reconstruct``,
     ``finalize+write``), its ingest split per block (``ingest_split``:
     the reconstruct stage's host seconds reading into the staging ring,
-    waiting on staged chunks and enqueuing steps), end-to-end seconds,
-    both Gupd/s and proj/s;
+    waiting on staged chunks and enqueuing steps), its drain split per
+    block (``drain_split``: the slabs' copies on the card, the pwrites,
+    the writer's waits on a copy, the slabs, the ring's pinned bytes),
+    end-to-end seconds, both Gupd/s and proj/s;
   * gates, reported apart: ``pass_rmse``, the 4-slice slab at the volume's
     centre against the golden oracle over the same stored frames (relative
     RMSE <= 1e-3), computed by one process per core (``golden_slab``) that
@@ -212,6 +214,7 @@ def run(size: int = 1024, accuracy: str = "fast", backend: str = "cuda",
         res["proj_per_s_end_to_end"] = round(n_proj / dt, 1)
         res["stage_timings"] = tap.timings[-1]
         res["ingest_split"] = tap.ingest
+        res["drain_split"] = tap.drain
         res["blocks"] = len(tap.block_rates)
         rmse = gate_slabs(out, goldens, slabs)[mid]
     res["rel_rmse_vs_golden_center_slab"] = rmse

@@ -88,13 +88,14 @@ RESULTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 class _JobLogTap(logging.Handler):
-    """The job's per-block rates, ingest split and stage timers, and where
-    its projection cache lives, from its log records."""
+    """The job's per-block rates, ingest and drain splits and stage
+    timers, and where its projection cache lives, from its log records."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.block_rates = []          # (proj/s, Gupd/s) per block
         self.ingest = []               # the ingest split per block
+        self.drain = []                # the drain split per block
         self.cache = []                # "projection cache: ..." lines
         self.timings = []              # "stage timings" texts
         self.band_rows = None          # (band rows, detector rows)
@@ -111,6 +112,12 @@ class _JobLogTap(logging.Handler):
                 "read_s": read_s, "read_chunks": chunks,
                 "stage_wait_s": wait_s, "step_enqueue_s": enqueue_s,
                 "steps": steps, "card_wait_s": card_s})
+        elif record.msg.startswith("block %d drain"):
+            index, d2h, write, wait, slabs, slices, pinned = record.args
+            self.drain.append({
+                "block": index, "d2h_s": d2h, "write_s": write,
+                "wait_s": wait, "slabs": slabs, "slab_slices": slices,
+                "pinned_bytes": pinned})
         elif record.msg.startswith("projection cache"):
             self.cache.append(record.getMessage())
         elif record.msg.startswith("stage timings"):
@@ -386,6 +393,7 @@ def run_call(workdir: str, *, accuracies: Sequence[str] = ("fast",),
             "per_block_proj_per_s": [p for p, _ in tap.block_rates],
             "per_block_gupd_per_s": [g for _, g in tap.block_rates],
             "per_block_ingest": tap.ingest,
+            "per_block_drain": tap.drain,
             "projection_cache": tap.cache,
             "stage_timings": tap.timings,
             "stage_seconds": stage_seconds(tap.timings[-1])
@@ -439,7 +447,7 @@ def combine(records: Sequence[dict]) -> dict:
     res["gupd_per_s_end_to_end"] = (math.prod(first["volume"])
                                     * first["n_proj"] / wall / 1e9)
     for key in ("per_block_proj_per_s", "per_block_gupd_per_s",
-                "per_block_ingest"):
+                "per_block_ingest", "per_block_drain"):
         res[key] = [x for r in recs for x in r.get(key, [])]
     stages: Dict[str, float] = {}
     for r in recs:

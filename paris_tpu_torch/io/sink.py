@@ -83,7 +83,10 @@ class VolumeSink:
 
     def write_block(self, block_index: int, volume: np.ndarray, z0: int
                     ) -> None:
-        """Write a (dz, dim_y, dim_x) block at global slice z0; mark done."""
+        """Write a (dz, dim_y, dim_x) block at global slice z0; mark done.
+        The JAX package's sink API, kept for callers that hold a block on
+        the host; the jobs drain through ``io/drain.py`` and call
+        ``mark_done``."""
         ddbvf.write_slices(self.path, volume, z0)
         self.mark_done(block_index)
 

@@ -10,8 +10,9 @@ keeps a cache), and writes only its own slab, at its global offset
 unless it is the only one.
 
 Collectives (the agreements on probed memory, the barriers, the steps'
-all-gathers) run on the main thread only.  The writer thread does the
-device-to-host copy and the pwrite; the barrier that follows a block's
+all-gathers) run on the main thread only.  The writer thread drains the
+rank's slab, slab by slab through the job's pinned ring
+(``io/drain.py``); the barrier that follows a block's
 write, and the manifest mark, run on the main thread at a fixed point.
 """
 
@@ -22,19 +23,20 @@ import logging
 import time
 from typing import Optional
 
-import torch
-
 from ..app import (
-    CARD_CACHE_MARGIN, ReconstructionJob, _after, _auto_hbm_budget,
+    CARD_CACHE_MARGIN, ReconstructionJob, _auto_hbm_budget,
     _block_hbm_bytes, _finish_writer, _free_hbm_bytes, _job_source,
     _log_block_done, _overlap_free_est, _plan_cache, _plan_write_overlap,
-    _ProjectionCache, _reconstruct_block, _source_chunks, _widest_band,
+    _ProjectionCache, _drain_block, _reconstruct_block, _source_chunks,
+    _widest_band,
 )
 from ..exceptions import ParisError, StageConstructionError, StageRuntimeError
 from ..geometry import apply_roi, derive_volume_geometry, plan_z_blocks
+from ..io.drain import BlockDrain
 from ..io.sink import VolumeSink
 from ..pipeline import resolve_backend
 from ..utils.logging import StageTimers, fmt_duration
+from ..utils.profiling import annotate, trace
 from . import multihost
 from .dist import DistributedReconstructor, owned_slots
 from .mesh import world_and_rank
@@ -151,16 +153,17 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
     if overlap and info.num > 1:
         logger.info("write overlap: block k+1 reconstructs while "
                     "block k drains to disk")
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
-        else None
+    # one ring of pinned slots for every block of the job
+    drain = BlockDrain(device, (vol_geo.dim_y, vol_geo.dim_x), rec.local_dz)
     writer = concurrent.futures.ThreadPoolExecutor(
         1, thread_name_prefix="paris-write")
     pending = None          # (future, block) of the draining block
 
     def _drain(vol_state, blk, ready):
         """Writer thread: local work only, no collective."""
-        with timers.time("finalize+write"), _after(ready, copy_stream):
-            rec.write_shards(vol_state, sink.path, blk.z0, blk.dim_z)
+        _drain_block(drain, lambda split: rec.write_shards(
+            vol_state, sink.path, blk.z0, blk.dim_z, drain=drain,
+            ready=ready, split=split), blk, timers)
 
     def _drain_pending():
         """Wait for the draining block's write, then, on the main thread,
@@ -189,13 +192,16 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
                                 "resume=True completes the remaining "
                                 "blocks", n_done)
                     break
-                volume, ready, meter = _reconstruct_block(
-                    rec, job, block, info, vol_geo, cache, timers,
-                    lambda: _source_chunks(source, chunk),
-                    first=n_done == 0)
-                # bound in-flight accumulators at 2 (this block's and the
-                # draining one); surfaces writer errors
-                _drain_pending()
+                with trace(job.trace_dir, device):
+                    volume, ready, meter = _reconstruct_block(
+                        rec, job, block, info, vol_geo, cache, timers,
+                        lambda: _source_chunks(source, chunk),
+                        first=n_done == 0)
+                    # bound in-flight accumulators at 2 (this block's and
+                    # the draining one); surfaces writer errors.  In the
+                    # block's trace, which so holds the drain's copies
+                    with annotate("drain_wait"):
+                        _drain_pending()
                 pending = (writer.submit(_drain, volume, block, ready), block)
                 # drop the loop's reference now: without overlap the wait
                 # below frees the accumulator before the next init_block

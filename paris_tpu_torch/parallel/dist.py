@@ -17,9 +17,10 @@ Per step, mirroring the JAX package's shard step (``dist.py:186-222``):
 The JAX package's Pallas path shards y instead, because its kernel
 layout keeps z padded to 128 per shard (``dist.py:7-12``); this
 accumulator is the unpadded (dz, ny, nx) layout, so a rank's z-slab is
-contiguous in the ddbvf and is written with one pwrite
-(``multihost.write_local_shards``).  The kernel takes the slab's z
-offset as it takes a block's, so sharding costs the kernel nothing.
+contiguous in the ddbvf and is drained slab by slab at its offset
+(``multihost.write_local_shards``, ``io/drain.py``).  The kernel takes
+the slab's z offset as it takes a block's, so sharding costs the kernel
+nothing.
 """
 
 from __future__ import annotations
@@ -124,12 +125,15 @@ class DistributedReconstructor(Reconstructor):
             roi_offset=(rx1, ry1, 0), v_lo=v_lo)
 
     def write_shards(self, volume: torch.Tensor, path: str, z_base: int,
-                     dim_z_valid: int) -> int:
+                     dim_z_valid: int, *, drain, ready=None,
+                     split=None) -> int:
         """Write this rank's slab of the block at global slice ``z_base``
-        into the ddbvf, up to the block's ``dim_z_valid`` slices."""
+        into the ddbvf, up to the block's ``dim_z_valid`` slices, slab by
+        slab through ``drain`` (``multihost.write_local_shards``)."""
         return multihost.write_local_shards(
             path, volume, z_base + self.rank * self.local_dz,
-            max_z=z_base + dim_z_valid)
+            max_z=z_base + dim_z_valid, drain=drain, ready=ready,
+            split=split)
 
     def finalize(self, volume: torch.Tensor) -> np.ndarray:
         """The block as a (dz, ny, nx) ndarray; one rank holds it only at

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..io import ddbvf
+from ..io.drain import BlockDrain
 
 from ..pipeline import resolve_backend
 from .mesh import group_backend, rank_device, world_and_rank
@@ -165,13 +165,14 @@ def crash_diagnostics(stage: str, marker_dir: Optional[str] = None):
 
 
 def write_local_shards(path: str, slab: torch.Tensor, z0: int,
-                       max_z: Optional[int] = None) -> int:
+                       max_z: Optional[int] = None, *, drain: BlockDrain,
+                       ready=None, split=None) -> int:
     """Write this rank's (dz, ny, nx) z-slab into the ddbvf at global
     slice ``z0``, stopping before global slice ``max_z``; returns the
-    slices written.  Only those slices are copied to the host."""
+    slices written.  Only those slices leave the card, slab by slab
+    through ``drain`` (the job's ``BlockDrain``), after ``ready``;
+    ``split`` gets the drain's timings."""
     dz = slab.shape[0] if max_z is None else min(slab.shape[0], max_z - z0)
     if dz <= 0:
         return 0
-    ddbvf.write_slices(path, slab[:dz].cpu().numpy(), z0)
-    return dz
-
+    return drain.drain(slab, path, z0, dz, ready=ready, split=split)

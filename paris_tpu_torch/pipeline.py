@@ -267,7 +267,9 @@ def _as_float32(chunk: torch.Tensor) -> torch.Tensor:
 class _Slot:
     """One staging buffer: ``frames`` (a chunk's raw frames) and ``trig``
     (its sines and cosines), pinned when ``pinned``; ``event`` is the copy
-    that last read it, ``lock`` held from its hand-out to its copy."""
+    that last used it (the drain's copies write it), ``lock`` held from
+    its hand-out to the end of its use (its copy; for the drain, its
+    pwrite)."""
 
     def __init__(self, shape, dtype, pinned: bool):
         nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
@@ -305,6 +307,13 @@ class _Ring:
         if slot.event is not None:
             slot.event.synchronize()
         return slot
+
+    @property
+    def nbytes(self) -> int:
+        """Pinned bytes of the slots allocated so far."""
+        with self._lock:
+            return sum(slot.buf.numel() + 4 * slot.trig_t.numel()
+                       for ring, _ in self._rings.values() for slot in ring)
 
 
 def resolve_backend(backend: str, device=None) -> Tuple[str, torch.device]:

@@ -1,8 +1,10 @@
 """The CUDA kernels (backprojection: unbanded, banded, its other
 staging paths and block shapes, and its taps from global memory where no
-tile ring fits; gather micro-benchmarks K3a and K3b) against their plain PyTorch versions, and
-the world-1 NCCL distributed path against the single-device one, on the
-card.  Every test here is marked ``cuda`` and skips without a card.
+tile ring fits; gather micro-benchmarks K3a and K3b) against their plain PyTorch versions,
+the world-1 NCCL distributed path against the single-device one, the
+ingest's pinned ring and the output drain's (bytes, the accumulator's
+lifetime, slot reuse, pinned bytes), on the card.  Every test here is
+marked ``cuda`` and skips without a card.
 
 This file imports no JAX and nothing of the JAX package, so it also runs
 where JAX is not installed:
@@ -679,3 +681,162 @@ def test_card_cache_job_equals_the_uncached_job(cuda_device, tmp_path,
     n_blocks = logs["off"].count("ingest from the HIS files")
     assert n_blocks >= 2 and decoded == {"card": 40, "host": 40,
                                          "off": n_blocks * 40}
+
+
+# -------------------------------------------------------------- drain
+
+def _drain_block(device, shape, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def _drained(tmp_path, name, drain, volume, dim_z, z0=0, file_z=None):
+    """``volume``'s first ``dim_z`` slices drained into a new ddbvf at
+    ``z0`` after an event on the compute stream, as the job drains."""
+    from paris_tpu_torch.io import ddbvf
+    _, ny, nx = volume.shape
+    path = ddbvf.create(str(tmp_path / f"{name}.ddbvf"), nx, ny,
+                        file_z or z0 + dim_z)
+    ready = torch.cuda.Event()
+    ready.record()
+    assert drain.drain(volume, path, z0, dim_z, ready=ready) == dim_z
+    return path
+
+
+def _bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accuracy", ["fast", "exact"])
+def test_drain_from_the_card_equals_the_cpu_composition(cuda_device, tmp_path,
+                                                        monkeypatch, accuracy):
+    """An accumulator reconstructed on the card in each mode, drained in
+    slabs of 6 slices (37 valid of 40: neither divides by 6) through the
+    pinned ring: byte for byte ``volume.cpu()`` + ``write_slices``."""
+    from paris_tpu_torch import pipeline
+    from paris_tpu_torch.io import ddbvf, drain as drain_mod
+    det = BASE
+    vol = derive_volume_geometry(det)
+    rec = pipeline.Reconstructor(det, vol, chunk_size=8, backend="cuda",
+                                 accuracy=accuracy,
+                                 block_shape=(40, vol.dim_y, vol.dim_x))
+    rng = np.random.default_rng(11)
+    projs = rng.standard_normal((16, det.n_col, det.n_row)).astype(np.float32)
+    angles = np.arange(16, dtype=np.float32) * 22.5
+    volume = rec.accumulate(rec.init_block(), projs, angles, z_offset=8)
+    slice_bytes = 4 * vol.dim_y * vol.dim_x
+    monkeypatch.setattr(drain_mod, "SLAB_BYTES", 6 * slice_bytes)
+    drain = drain_mod.BlockDrain(cuda_device, (vol.dim_y, vol.dim_x), 40)
+    assert drain.slices == 6
+    got = _drained(tmp_path, "slabs", drain, volume, 37, z0=8,
+                   file_z=vol.dim_z)
+    ref = ddbvf.create(str(tmp_path / "ref.ddbvf"), vol.dim_x, vol.dim_y,
+                       vol.dim_z)
+    ddbvf.write_slices(ref, volume.cpu().numpy()[:37], 8)
+    assert _bytes(got) == _bytes(ref)
+    assert drain.pinned_bytes >= 3 * 6 * slice_bytes
+
+
+@pytest.mark.cuda
+def test_drain_keeps_the_accumulator_until_its_copies(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """A 256 MiB block drained on a writer thread in 8 MiB slabs while the
+    main thread drops its reference and at once allocates and fills the
+    next blocks' accumulators on the compute stream: the file holds the
+    first block's bytes, none of the next blocks' values."""
+    import concurrent.futures
+    from paris_tpu_torch.io import ddbvf, drain as drain_mod
+    shape = (256, 512, 512)
+    monkeypatch.setattr(drain_mod, "SLAB_BYTES", 8 * 4 * 512 * 512)
+    drain = drain_mod.BlockDrain(cuda_device, shape[1:], shape[0])
+    volume = _drain_block(cuda_device, shape, 3)
+    want = volume.cpu().numpy().tobytes()
+    path = ddbvf.create(str(tmp_path / "v.ddbvf"), 512, 512, 256)
+    ready = torch.cuda.Event()
+    ready.record()
+    with concurrent.futures.ThreadPoolExecutor(1) as writer:
+        fut = writer.submit(drain.drain, volume, path, 0, 256, ready)
+        volume = None
+        nxt = [torch.full(shape, -7.0, device=cuda_device) for _ in range(3)]
+        assert fut.result(timeout=300) == 256
+    torch.cuda.synchronize()
+    data = _bytes(path)[ddbvf.DATA_START:]
+    assert data == want
+    assert all(float(t[0, 0, 0]) == -7.0 for t in nxt)
+
+
+@pytest.mark.cuda
+def test_drain_hands_a_slot_out_only_after_its_pwrite(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """Every slot the drain's ring hands out is poisoned on hand-out: the
+    file never holds the poison (a pwrite that ran before its slab's copy
+    finished, or a slot reused before its pwrite returned, would write
+    it), over several blocks of one drain."""
+    from paris_tpu_torch.io import ddbvf, drain as drain_mod
+    shape = (96, 512, 512)
+    monkeypatch.setattr(drain_mod, "SLAB_BYTES", 5 * 4 * 512 * 512)
+    drain = drain_mod.BlockDrain(cuda_device, shape[1:], shape[0])
+    acquire = drain._ring.acquire
+    handed = []
+
+    def poisoned(*args):
+        slot = acquire(*args)
+        slot.frames.view(np.uint32)[:] = 0x7FC0DEAD
+        handed.append(slot)
+        return slot
+    monkeypatch.setattr(drain._ring, "acquire", poisoned)
+    poison = np.uint32(0x7FC0DEAD)
+    for k, dim_z in enumerate((96, 91, 7)):
+        volume = _drain_block(cuda_device, shape, 10 + k)
+        path = _drained(tmp_path, f"b{k}", drain, volume, dim_z)
+        data = np.frombuffer(_bytes(path)[ddbvf.DATA_START:], np.uint32)
+        assert not (data == poison).any()
+        assert data.tobytes() == volume[:dim_z].cpu().numpy().tobytes()
+    assert len(handed) == sum(-(-n // 5) for n in (96, 91, 7))
+    assert len({id(s) for s in handed}) == drain_mod.DRAIN_SLOTS
+
+
+@pytest.mark.cuda
+def test_drain_without_ready_waits_for_the_current_stream(cuda_device,
+                                                           tmp_path):
+    """A drain given no ``ready`` event, submitted right after the compute
+    stream queues a long spin and then the kernel that writes the
+    accumulator: the file holds the written values, not the ones before
+    (the drain's copy stream waits for the caller's current stream)."""
+    from paris_tpu_torch.io import ddbvf
+    from paris_tpu_torch.io.drain import BlockDrain
+    shape = (64, 512, 512)
+    drain = BlockDrain(cuda_device, shape[1:], shape[0])
+    volume = _drain_block(cuda_device, shape, 21)
+    torch.cuda.synchronize()
+    path = ddbvf.create(str(tmp_path / "v.ddbvf"), 512, 512, 64)
+    torch.cuda._sleep(1 << 28)          # ~0.1 s of spin ahead of the write
+    volume.mul_(-3.0).add_(1.0)
+    assert drain.drain(volume, path, 0, 64) == 64
+    want = volume.cpu().numpy().tobytes()
+    assert _bytes(path)[ddbvf.DATA_START:] == want
+
+
+@pytest.mark.cuda
+def test_drain_pinned_bytes_stay_bounded_by_the_ring(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """One drain over blocks of 24 MiB, 1 GiB and 24 MiB again (slabs of
+    16 MiB): its pinned bytes never pass its slots', and the 1 GiB block
+    leaves them at the ring's size, which the next block keeps."""
+    from paris_tpu_torch.io import drain as drain_mod
+    from paris_tpu_torch.io.drain import DRAIN_SLOTS, BlockDrain
+    slab = 16 << 20
+    monkeypatch.setattr(drain_mod, "SLAB_BYTES", slab)
+    drain = BlockDrain(cuda_device, (512, 512), 1024)
+    assert drain.pinned_bytes == 0
+    sizes = []
+    for dz in (24, 1024, 24):
+        volume = _drain_block(cuda_device, (dz, 512, 512), dz)
+        _drained(tmp_path, f"z{dz}_{len(sizes)}", drain, volume, dz)
+        sizes.append(drain.pinned_bytes)
+        del volume
+    ring = DRAIN_SLOTS * slab
+    assert 0 < sizes[0] <= sizes[1] == sizes[2]
+    assert ring <= sizes[1] <= ring + DRAIN_SLOTS * 4096

@@ -31,6 +31,7 @@ from paris_tpu.parallel import make_z_mesh
 from paris_tpu_torch.app import ReconstructionJob, run_job
 from paris_tpu_torch.geometry import (DetectorGeometry, RegionOfInterest,
                                       apply_roi, derive_volume_geometry)
+from paris_tpu_torch.io.drain import BlockDrain
 from paris_tpu_torch.parallel import dist as dist_mod
 from paris_tpu_torch.parallel import multihost
 from paris_tpu_torch.parallel.dist import DistributedReconstructor, owned_slots
@@ -213,14 +214,38 @@ def test_write_local_shards(tmp_path):
     slab = rng.standard_normal((16, 4, 4)).astype(np.float32)
     path = str(tmp_path / "mh.ddbvf")
     ddbvf.create(path, 4, 4, 30)
+    drain = BlockDrain("cpu", (4, 4), 16)
     assert multihost.write_local_shards(path, torch.from_numpy(slab), 5,
-                                        max_z=15) == 10
+                                        max_z=15, drain=drain) == 10
     np.testing.assert_array_equal(ddbvf.read_slices(path, 5, 10), slab[:10])
     np.testing.assert_array_equal(ddbvf.read_slices(path, 15, 15), 0)
     assert multihost.write_local_shards(path, torch.from_numpy(slab), 20,
-                                        max_z=20) == 0
-    assert multihost.write_local_shards(path, torch.from_numpy(slab), 14) == 16
+                                        max_z=20, drain=drain) == 0
+    assert multihost.write_local_shards(path, torch.from_numpy(slab), 14,
+                                        drain=drain) == 16
     np.testing.assert_array_equal(ddbvf.read_slices(path, 14, 16), slab)
+
+
+@pytest.mark.parametrize("slices", [3, 16])
+def test_write_local_shards_through_a_drain(tmp_path, monkeypatch, slices):
+    """The slab written through a drain of ``slices`` slices per slab: the
+    same slices at the same offsets as test_write_local_shards, one pwrite
+    per slab, the split in ``split``."""
+    from paris_tpu_torch.io import drain as drain_mod
+    from paris_tpu_torch.utils.logging import StageTimers
+    rng = np.random.default_rng(3)
+    slab = rng.standard_normal((16, 4, 4)).astype(np.float32)
+    path = str(tmp_path / "mh.ddbvf")
+    ddbvf.create(path, 4, 4, 30)
+    monkeypatch.setattr(drain_mod, "SLAB_BYTES", slices * 64)
+    drain = drain_mod.BlockDrain("cpu", (4, 4), 16)
+    split = StageTimers()
+    assert multihost.write_local_shards(path, torch.from_numpy(slab), 5,
+                                        max_z=15, drain=drain,
+                                        split=split) == 10
+    assert split.counts["write"] == -(-10 // slices)
+    np.testing.assert_array_equal(ddbvf.read_slices(path, 5, 10), slab[:10])
+    np.testing.assert_array_equal(ddbvf.read_slices(path, 15, 15), 0)
 
 
 def test_crash_diagnostics_marker(tmp_path, caplog):
@@ -330,3 +355,33 @@ def test_two_rank_cli_max_blocks_then_resume(his_scan, tmp_path):
     np.testing.assert_array_equal(
         ddbvf.read_volume(str(out / "v.ddbvf")),
         _single(his_scan, tmp_path / "ref", "fast"))
+
+
+@pytest.mark.parametrize("accuracy", ["fast", "exact"])
+def test_world1_job_drains_in_slabs_like_run_job(group, his_scan, tmp_path,
+                                                 monkeypatch, accuracy):
+    """run_job_distributed over the world-1 gloo group, every rank's slab
+    drained in slabs of 5 slices (which divide no block): byte for byte
+    the single-process run_job, every block in the manifest and a drain
+    split in the log per block."""
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import job_log_tap
+    from paris_tpu_torch.io import drain as drain_mod
+    from paris_tpu_torch.parallel.app import run_job_distributed
+    vol = derive_volume_geometry(HIS_DET)
+    monkeypatch.setattr(drain_mod, "SLAB_BYTES",
+                        5 * 4 * vol.dim_y * vol.dim_x)
+    with job_log_tap() as tap:
+        out = run_job_distributed(ReconstructionJob(
+            det=HIS_DET, input_path=his_scan[0],
+            output_path=str(tmp_path / "dist"), prefix="v", chunk_size=8,
+            backend="torch", accuracy=accuracy, block_dz=32))
+    single = run_job(ReconstructionJob(
+        det=HIS_DET, input_path=his_scan[0], output_path=str(tmp_path / "one"),
+        prefix="v", chunk_size=8, backend="torch", accuracy=accuracy,
+        block_dz=32))
+    with open(out, "rb") as f, open(single, "rb") as g:
+        assert f.read() == g.read()
+    assert json.load(open(out + ".manifest.json"))["completed_blocks"] == \
+        [0, 1]
+    assert [(d["block"], d["slabs"], d["slab_slices"]) for d in tap.drain] \
+        == [(0, 7, 5), (1, 7, 5)]

@@ -67,6 +67,9 @@ def test_config3_stream_keys_and_gates(stream):
     assert res["kernel_only_gupd_per_s"] > 0
     assert res["reconstruct_seconds"] > 0 and res["blocks"] == 1
     assert res["device"] == "cpu"
+    (drain,) = res["drain_split"]
+    assert drain["block"] == 0 and drain["slabs"] >= 1
+    assert drain["write_s"] > 0 and drain["pinned_bytes"] == 0
 
 
 def test_config3_stream_slab_against_the_jax_golden(stream):
