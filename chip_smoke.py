@@ -115,7 +115,9 @@ Phases (each raises on failure; the script then exits non-zero):
      c. config3_stream at 1024 over 360 frames, fast, its kernel-only
         rate the bench fast value of 7a (PARIS_BENCH_KERNEL_GUPS): the RMSE
         gate is fatal, the 2x rate gate is printed with its verdict, and
-        its drain split (one per block, or the phase fails);
+        its plan and drain split (one per block, or the phase fails); the
+        job's own plan, which on the card is two 512-slice blocks, so its
+        K1 launches are 2 x 23;
      d. dist_parity_ab (--quality 1) and dist_overlap_ab at --size 512
         over one 360-frame scan written once: byte equality of the two
         drivers' outputs is fatal, the ratio gates are printed;
@@ -129,6 +131,18 @@ Phases (each raises on failure; the script then exits non-zero):
      Before each step the phase reserves the bytes the step will write and
      fails if the run's total would pass 40 GiB.
 
+  8. the job's z-block plan (paris_tpu_torch/app.py card_block_dz, used
+     by plan_job and the distributed job): the auto plans, on this card
+     and with no scan, of config3_stream's job (1024^3 from 360 float32
+     frames, chunk 16) and of config 5 from 3600 uint16 frames (chunk 8),
+     each with its blocks, write overlap, projection cache and the rule's
+     reason; config 5's must split, with the overlap and the card cache.
+     Then a 480^3 job from 64 frames (fast) through cli.main in three
+     160-slice blocks and in one block: the two ddbvf files must be equal
+     byte for byte, the split job's seam slab z 158..161 within 1e-3 of
+     the golden oracle, and K1 and the u16 round trip launched once per
+     block and chunk.  Writes 0.88 GiB.
+
 Disk: after each phase the script prints the bytes that phase wrote and
 the run's total: the bytes this process passed to write and pwrite
 (/proc/self/io wchar; the chip machine's kernel keeps no write_bytes) plus
@@ -137,7 +151,7 @@ libraries, the golden oracle's partial slabs).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launches (K1 and the u16 round trip: the
-jobs of phases 3, 5b and 6b and the main()s of phase 7, each counted
+jobs of phases 3, 5b, 6b and 8 and the main()s of phase 7, each counted
 from 0 just before it), errors, times and bounds (K1: ms per
 launch at the fast (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile
 of 64 gathers, the kernel's from a launch of 256 tiles; the u16 round
@@ -1416,6 +1430,7 @@ def phase_benchmarks(workdir, disk):
           f"{res['pass_rmse']}); kernel-only {res['kernel_only_gupd_per_s']} "
           f"Gupd/s, rate gate (reconstruct >= kernel / 2) pass_rate "
           f"{res['pass_rate']}")
+    print("  config3_stream plan: " + "; ".join(res["plan"]))
     for b in res["ingest_split"]:
         print(f"  config3_stream: block {b['block']} from the {b['from']}: "
               f"reconstruct {b['reconstruct_s']:.3f} s, read "
@@ -1461,6 +1476,132 @@ def phase_benchmarks(workdir, disk):
     return launches, cmp.max_abs_err
 
 
+class _FileTable:
+    """A file table of ``n_proj`` frames of ``dtype`` (what ``plan_job``
+    reads of a source: its chunks' frames and raw type), for a plan made
+    without a scan."""
+
+    def __init__(self, n_proj, dtype):
+        self.n_proj, self.dtype = n_proj, dtype
+
+    def chunk_reads(self, chunk, n_threads=None):
+        import types
+        import numpy as np
+        return [types.SimpleNamespace(dtype=np.dtype(self.dtype),
+                                      rows=min(chunk, self.n_proj - i))
+                for i in range(0, self.n_proj, chunk)]
+
+
+def _plan_line(label, det, n_proj, dtype, chunk):
+    """The job's auto plan on this card for ``n_proj`` frames of ``dtype``
+    (``app.plan_job`` over a file table, with the card's free memory):
+    printed, and returned."""
+    import torch
+    from paris_tpu_torch.app import ReconstructionJob, plan_job
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import job_log_tap
+    from paris_tpu_torch.geometry import derive_volume_geometry
+    job = ReconstructionJob(det=det, input_path="(no scan)",
+                            output_path="(no output)", chunk_size=chunk,
+                            backend="cuda")
+    with job_log_tap() as tap:
+        plan = plan_job(job, derive_volume_geometry(det),
+                        torch.device("cuda", 0), _FileTable(n_proj, dtype))
+    print(f"  plan: {label}: {plan.info.num} block(s) of "
+          f"{plan.info.dim_z_padded} slices, write overlap {plan.overlap}, "
+          f"projection cache {plan.cache} ({plan.cache_bytes} bytes); "
+          + "; ".join(line for line in tap.plan
+                      if line.startswith("block plan")))
+    return plan
+
+
+PLAN_SIZE = 480          # phase 8's detector and volume
+PLAN_NPROJ = 64
+PLAN_SPLIT_DZ = 160      # three blocks
+
+
+def phase_plan(workdir, disk):
+    """8: the job's z-block plan.  The auto plans of config3_stream's job
+    and of config 5 from 3600 uint16 frames on this card (no scan); then
+    a job split in three blocks against the one-block job of the same
+    scan, byte for byte, and the split job's seam against the golden
+    oracle.  Returns K1's and the u16 round trip's launches in the two
+    jobs."""
+    import numpy as np
+    from paris_tpu_torch import cli
+    from paris_tpu_torch.benchmarks.config3_stream import (SCAN_SUBDIR,
+                                                           cached_scan,
+                                                           geometry)
+    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import (
+        job_log_tap, rel_rmse)
+    from paris_tpu_torch.geometry import derive_volume_geometry
+    from paris_tpu_torch.golden import golden_fdk_stream
+    from paris_tpu_torch.io import ddbvf
+    from paris_tpu_torch.io.geometry_file import dump_geometry_file
+    from paris_tpu_torch.io.his import read_his
+    from paris_tpu_torch.io.source import scan_directory
+    from paris_tpu_torch.benchmarks.synth_c5_3600 import config5
+    print("z-block plan:")
+    _plan_line(f"config3_stream (1024^3, {STREAM_NPROJ} float32 frames, "
+               "chunk 16)", geometry(1024, STREAM_NPROJ), STREAM_NPROJ,
+               np.float32, 16)
+    c5 = _plan_line("config 5 (2048 x 2048 x 2055, 3600 uint16 frames, "
+                    "chunk 8)", config5(3600), 3600, np.uint16, 8)
+    if not (c5.info.num > 1 and c5.overlap and c5.cache == "card"):
+        raise AssertionError("config 5's auto plan takes no split with the "
+                             "write overlap and the card cache")
+
+    det = geometry(PLAN_SIZE, PLAN_NPROJ)
+    vol = derive_volume_geometry(det)
+    disk.reserve(PLAN_NPROJ * 4 * PLAN_SIZE ** 2 + 2 * vol.nbytes_f32,
+                 "phase 8")
+    work = os.path.join(workdir, "plan")
+    os.makedirs(work)
+    import torch
+    cached_scan(work, det, PLAN_NPROJ, torch.device("cuda", 0))
+    pdir = os.path.join(work, SCAN_SUBDIR)
+    geo = os.path.join(work, "scan.geo")
+    dump_geometry_file(det, geo)
+    seam = (PLAN_SPLIT_DZ - 2, 4)
+    frames = np.concatenate([read_his(p) for p in scan_directory(pdir)])
+    angles = np.arange(PLAN_NPROJ, dtype=np.float32) * det.delta_phi
+    (golden,) = golden_fdk_stream(zip(frames, angles), det, vol, [seam],
+                                  dtype=np.float32)
+    outs, seconds = {}, {}
+    _reset_counts()                              # this path starts here
+    for label, dz in (("split", PLAN_SPLIT_DZ), ("one block", vol.dim_z)):
+        with job_log_tap() as tap:
+            t0 = time.perf_counter()
+            rc = cli.main(["--geometry", geo, "--input", pdir, "--output",
+                           work, "--name", label.replace(" ", "_"),
+                           "--backend", "cuda", "--block-dz", str(dz),
+                           "--chunk-size", "16", "--accuracy", "fast"])
+            seconds[label] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"cli.main ({label}) exited {rc}")
+        outs[label] = os.path.join(work, label.replace(" ", "_") + ".ddbvf")
+        print(f"  {label}: {len(tap.ingest)} block(s), "
+              f"{seconds[label]:.2f} s; " + "; ".join(tap.plan))
+        _log_splits(tap, label)
+    launched, trips = _counts()
+    want = (3 + 1) * -(-PLAN_NPROJ // 16)
+    if launched != want or trips != want:
+        raise AssertionError(f"phase 8: K1 launched {launched} times, the "
+                             f"u16 round trip {trips}, expected {want}")
+    got = ddbvf.read_slices(outs["split"], *seam)
+    rmse = rel_rmse(got, golden)
+    same = _same_bytes(outs["split"], outs["one block"])
+    print(f"  {PLAN_SIZE}^3 from {PLAN_NPROJ} frames, fast: the split "
+          f"job's ddbvf byte-identical to the one-block job's: {same}; seam "
+          f"z {seam[0]}..{seam[0] + 3} relative RMSE {rmse:.2e}; K1 "
+          f"{launched} launches")
+    if not same:
+        raise AssertionError("the split job's ddbvf differs from the "
+                             "one-block job's")
+    if not rmse <= GATE_RMSE:
+        raise AssertionError(f"phase 8: seam RMSE {rmse:.3e} > {GATE_RMSE}")
+    return launched, trips
+
+
 def _same_bytes(a, b, block=64 << 20):
     if os.path.getsize(a) != os.path.getsize(b):
         return False
@@ -1501,6 +1642,9 @@ def main() -> int:
         bench_launches, bench_err = phase_benchmarks(workdir, disk)
         launches = [a + b for a, b in zip(launches, bench_launches)]
         max_abs_err = max(max_abs_err, bench_err)
+        launches = [a + b for a, b in zip(launches,
+                                          phase_plan(workdir, disk))]
+        disk.phase("phase 8")
     ms, plain_ms, bound, bound_by = timings[("fast", 64)]
     kernels = [{
         "name": "bp_kernel (fast: bf16 projections, f32 arithmetic)",

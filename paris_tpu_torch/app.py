@@ -2,8 +2,11 @@
 (port of ``paris_tpu/app.py``).
 
   * z-blocks come from ``plan_z_blocks``, sized by a device-memory budget
-    (45% of the card's free memory unless the job sets one) or a forced
-    extent, padded to one uniform shape;
+    (45% of the card's free memory unless the job sets one) or an extent:
+    the job's, the resumed output's (its manifest records it), or on the
+    card ``card_block_dz``'s, which splits the volume where block k's
+    drain then hides behind block k+1's reconstruct from the stream kept
+    on the card; padded to one uniform shape;
   * each step weights, filters and backprojects only the detector rows
     the widest block samples (``detector_row_band``);
   * per block: stream the HIS projections through the reconstructor,
@@ -180,6 +183,89 @@ def _plan_write_overlap(job, vol_geo: VolumeGeometry, info: SubvolumeInfo,
                                   fit_proj_buffer, free_est, n_shards)
 
 
+def extent_for(dim_z: int, k: int, align: int = 8) -> int:
+    """The ``align``-aligned extent that splits ``dim_z`` slices into at
+    most ``k`` blocks."""
+    return -(-(-(-dim_z // k)) // align) * align
+
+
+def predicted_job_seconds(k: int, *, updates: float, volume_bytes: float,
+                          read_bytes: float, pixels: float) -> float:
+    """Job seconds of a plan of ``k`` blocks, as the two-stage pipeline
+    runs it: block 0 reconstructs from the HIS files (``FILES_OVER_CACHE``
+    slower than a block served from the card cache, and never faster than
+    reading the stream's ``read_bytes``); each later block reconstructs
+    from the card cache while the one before drains (the drain then
+    slower than alone); then the last block drains alone.  Every block
+    passes over the stream's ``pixels`` once (the steps' whole-frame
+    work).  A plan of one block keeps no cache and overlaps nothing.
+    ``updates`` (voxels x projections) and ``volume_bytes`` are one
+    rank's share."""
+    recon = updates / K1_UPDATES_PER_S / k
+    first = max(FILES_OVER_CACHE * recon, read_bytes / READ_BYTES_PER_S)
+    beside = volume_bytes / DRAIN_BESIDE_BYTES_PER_S / k
+    return (first + (k - 1) * max(recon, beside)
+            + volume_bytes / DRAIN_BYTES_PER_S / k
+            + k * pixels * PASS_S_PER_PIXEL)
+
+
+def card_block_dz(vol_geo: VolumeGeometry, *, free_est: int,
+                  proj_buffer: int, stream_card_bytes: int,
+                  stream_host_bytes: int, n_proj: int, frame_pixels: int,
+                  budget_dz: Optional[int] = None, n_shards: int = 1,
+                  align: int = 8) -> Tuple[Optional[int], str]:
+    """The card's block extent for a job that forces none: the role of
+    ``paris_tpu/app.py:_perf_block_dz`` (whose TPU body tunes VMEM fills)
+    on the card.  Returns (extent, why); extent None keeps the memory
+    rule's plan.
+
+    A split lets block k drain while block k+1 reconstructs from the
+    stream kept on the card, so only the last block's drain is exposed.
+    It is taken only where two accumulators, the stream's card cache
+    (``stream_card_bytes``), the staging (``proj_buffer``) and
+    ``CARD_CACHE_MARGIN`` fit ``free_est``: without the cache, later
+    blocks would read the HIS files again beside the drain's pwrites.
+    Among the block counts 1..``MAX_SPLIT`` whose aligned extent is at
+    least ``MIN_SPLIT_DZ`` slices and so fits, it takes the one
+    ``predicted_job_seconds`` says is fastest, its extent capped at
+    ``budget_dz`` (the budget's largest); one block keeps the memory
+    rule's plan.  ``n_shards`` ranks each hold 1/n of a
+    block, reconstruct 1/n of its updates and drain 1/n of its bytes;
+    the stream's bytes are one rank's."""
+    slice_bytes = 4 * vol_geo.dim_x * vol_geo.dim_y
+    n = max(1, n_shards)
+    shares = dict(updates=vol_geo.voxels * n_proj / n,
+                  volume_bytes=vol_geo.dim_z * slice_bytes / n,
+                  read_bytes=stream_host_bytes,
+                  pixels=n_proj * frame_pixels)
+    one = predicted_job_seconds(1, **shares)
+    room = free_est - proj_buffer - stream_card_bytes - CARD_CACHE_MARGIN
+    best = None
+    for k in range(2, MAX_SPLIT + 1):
+        dz = extent_for(vol_geo.dim_z, k, align)
+        blocks = -(-vol_geo.dim_z // dz)
+        if (dz < MIN_SPLIT_DZ or blocks < 2
+                or 2 * dz * slice_bytes // n > room):
+            continue
+        t = predicted_job_seconds(blocks, **shares)
+        if best is None or t < best[0]:
+            best = (t, dz, blocks)
+    if best is None:
+        return None, ("no split of at least %d slices fits two "
+                      "accumulators beside the stream's %d card bytes"
+                      % (MIN_SPLIT_DZ, stream_card_bytes))
+    t, dz, blocks = best
+    if t >= one:
+        return None, ("one block: predicted %.2f s, %d blocks %.2f s"
+                      % (one, blocks, t))
+    why = ("%d blocks of %d slices, predicted %.2f s against %.2f s at "
+           "one block; two accumulators and the stream's %d card bytes fit"
+           % (blocks, dz, t, one, stream_card_bytes))
+    if budget_dz is not None and dz > budget_dz:
+        return budget_dz, why + "; capped at the budget's %d" % budget_dz
+    return dz, why
+
+
 @dataclasses.dataclass(frozen=True)
 class JobPlan:
     """The z-blocks ``run_job`` runs a job in: ``info``, the blocks;
@@ -203,6 +289,20 @@ STEP_LEAD = 4
 # staging: the step's whole-frame float32 and band temporaries, cuFFT's
 # workspace, the allocator's rounding
 CARD_CACHE_MARGIN = 2 << 30
+
+# The card's block-extent rule (``card_block_dz``), sized by the plan
+# sweep on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6, PR
+# 12: benchmarks/plan_sweep.py at config 3, 1024^3 from 360 and 3600
+# float32 frames in 1, 2, 4 and 8 blocks; full_scale_2048.py at config 5
+# from 1000 uint16 frames in 1 and 6 blocks):
+K1_UPDATES_PER_S = 6.8e11   # a card-cached block's reconstruct: 656-743 G/s
+FILES_OVER_CACHE = 1.05     # block 0, from the HIS files, over that: 1.0-1.07
+READ_BYTES_PER_S = 4.5e9    # block 0 reads the stream no faster: 4.0-5.5 GB/s
+DRAIN_BYTES_PER_S = 3.0e9   # a drain alone: 2.6-3.4 GB/s
+DRAIN_BESIDE_BYTES_PER_S = 2.5e9   # beside a reconstruct: 2.4-3.0 GB/s
+PASS_S_PER_PIXEL = 1.0e-11  # a block's pass over the stream, per frame pixel
+MAX_SPLIT = 8               # the largest block count the sweep measured
+MIN_SPLIT_DZ = 128          # thinner blocks are never split to
 
 
 def cache_placement(card_bytes: int, host_bytes: int,
@@ -229,17 +329,20 @@ def _job_source(job: ReconstructionJob, slot_filter=None
 
 
 def _stream_bytes(source: ProjectionSource, det: DetectorGeometry,
-                  chunk_size: int, rows: Tuple[int, int]) -> Tuple[int, int]:
+                  chunk_size: int, rows: Tuple[int, int]
+                  ) -> Tuple[int, int, int]:
     """(bytes of this process's chunk rows ``rows`` of the stream as the
     card keeps them: every slot of every chunk; as the host keeps them:
-    the frames), in the chunks' raw types, from the file table."""
+    the frames; the stream's frames), in the chunks' raw types, from the
+    file table."""
     lo, hi = rows
-    card = host = 0
+    card = host = frames = 0
     for r in source.chunk_reads(chunk_size):
         frame = r.dtype.itemsize * det.n_col * det.n_row
         card += (hi - lo) * frame
         host += max(0, min(hi, r.rows) - lo) * frame
-    return card, host
+        frames += r.rows
+    return card, host, frames
 
 
 def _plan_cache(job: ReconstructionJob, info: SubvolumeInfo,
@@ -267,7 +370,8 @@ def _plan_cache(job: ReconstructionJob, info: SubvolumeInfo,
                 else "64 GiB or half of the host's available memory")
     if source is None:
         source = _job_source(job)
-    card_bytes, host_bytes = _stream_bytes(source, job.det, chunk_size, rows)
+    card_bytes, host_bytes, _ = _stream_bytes(source, job.det, chunk_size,
+                                              rows)
     place = cache_placement(card_bytes, host_bytes, card_room, cap)
     if place == "card":
         logger.info("projection cache: on the card, %d bytes (%d bytes of "
@@ -281,21 +385,52 @@ def _plan_cache(job: ReconstructionJob, info: SubvolumeInfo,
     return "off", 0
 
 
+def _memory_rule_why(job: ReconstructionJob, device: torch.device,
+                     free_est: Optional[int]) -> Optional[str]:
+    """Why the job keeps the memory rule's plan (the JAX package's), or
+    None when the card's block-extent rule decides the extent."""
+    if job.block_dz is not None:
+        return "the job's block_dz"
+    if job.hbm_budget_bytes is not None:
+        return "the job's device-memory budget"
+    if os.environ.get("PARIS_WRITE_OVERLAP", "1") == "0":
+        return "PARIS_WRITE_OVERLAP=0"
+    if device.type != "cuda" or free_est is None:
+        return "off the card"
+    if job.cache_projections is False:
+        return "cache_projections=False"
+    return None
+
+
+def _budget_max_dz(hbm_budget: Optional[int], proj_buffer: int,
+                   vol_geo: VolumeGeometry, align: int = 8
+                   ) -> Optional[int]:
+    """The largest ``align``-aligned extent the per-block budget holds
+    (None: no budget)."""
+    if hbm_budget is None:
+        return None
+    slices = (hbm_budget - proj_buffer) // _block_hbm_bytes(vol_geo, 1)
+    return max(align, slices // align * align)
+
+
 def plan_job(job: ReconstructionJob, vol_geo: VolumeGeometry,
              device: torch.device,
              source: Optional[ProjectionSource] = None) -> JobPlan:
     """The plan ``run_job`` takes for ``job`` on ``device``: the job's
-    budget, else 45 % of the card's free memory; the blocks that fit it
-    (or the forced extent); then the cut for the write overlap; then where
-    the projection cache lives (``_plan_cache``: on the card when the
-    stream, whose bytes come from ``source``'s file table, fits the free
-    memory less two accumulators with the overlap, else one, the staging
-    and a margin).  ``source`` defaults to the job's, built only when the
-    job caches.  A caller
-    that must know where the block seams fall calls it too, and pins the
-    result into the job (``block_dz=plan.info.dim_z_padded``): the free
-    memory it reads can change between two calls.  Raises ValueError for
-    a budget or extent no plan fits."""
+    budget, else 45 % of the card's free memory; on the card, unless the
+    job forces an extent or a budget, the extent of ``card_block_dz``
+    (capped by that budget), which reads the stream's bytes and frames
+    from ``source``'s file table; the blocks that fit the budget (or that
+    extent); then the cut for the write overlap; then where the
+    projection cache lives (``_plan_cache``: on the card when the stream
+    fits the free memory less two accumulators with the overlap, else
+    one, the staging and a margin).  ``source`` defaults to the job's,
+    built only when the rule or the cache needs it.  The plan and why are
+    logged beside the z-split.  A caller that must know where the block
+    seams fall calls it too, and pins the result into the job
+    (``block_dz=plan.info.dim_z_padded``): the free memory it reads can
+    change between two calls.  Raises ValueError for a budget or extent
+    no plan fits."""
     proj_bytes = 4 * job.det.n_row * job.det.n_col
     proj_buffer = 4 * proj_bytes * job.chunk_size
     hbm_budget = job.hbm_budget_bytes
@@ -304,16 +439,29 @@ def plan_job(job: ReconstructionJob, vol_geo: VolumeGeometry,
         if hbm_budget is not None:
             logger.info("auto device-memory budget: %.1f GB",
                         hbm_budget / 2**30)
+    free_est = _overlap_free_est(_free_hbm_bytes(device),
+                                 job.hbm_budget_bytes)
+    block_dz = job.block_dz
+    why = _memory_rule_why(job, device, free_est)
+    if why is None:
+        if source is None:
+            source = _job_source(job)
+        card, host, frames = _stream_bytes(source, job.det, job.chunk_size,
+                                           (0, job.chunk_size))
+        block_dz, why = card_block_dz(
+            vol_geo, free_est=free_est, proj_buffer=proj_buffer,
+            stream_card_bytes=card, stream_host_bytes=host, n_proj=frames,
+            frame_pixels=job.det.n_row * job.det.n_col,
+            budget_dz=_budget_max_dz(hbm_budget, proj_buffer, vol_geo))
     info = plan_z_blocks(vol_geo, hbm_budget_bytes=hbm_budget,
-                         proj_buffer_bytes=proj_buffer,
-                         block_dz=job.block_dz)
+                         proj_buffer_bytes=proj_buffer, block_dz=block_dz)
     logger.info("z-split: %d block(s) of %d slices (padded)",
                 info.num, info.dim_z_padded)
+    logger.info("block plan: %s", why if block_dz is not None
+                else f"the memory rule ({why})")
     # Overlapped finalize: block k's device-to-host copy and ddbvf write
     # run on the writer thread while block k+1 reconstructs.  It needs two
     # accumulators resident at once, so it engages only when they fit.
-    free_est = _overlap_free_est(_free_hbm_bytes(device),
-                                 job.hbm_budget_bytes)
     info, overlap = _plan_write_overlap(
         job, vol_geo, info, free_est, proj_buffer,
         hbm_budget=hbm_budget, proj_buffer=proj_buffer)
@@ -324,6 +472,55 @@ def plan_job(job: ReconstructionJob, vol_geo: VolumeGeometry,
     cache, cache_bytes = _plan_cache(job, info, source, job.chunk_size,
                                      (0, job.chunk_size), card_room)
     return JobPlan(info, overlap, hbm_budget, cache, cache_bytes)
+
+
+def _recorded_block_dz(job: ReconstructionJob,
+                       vol_geo: VolumeGeometry) -> Optional[int]:
+    """On ``resume``, the block extent the output's manifest records
+    (``VolumeSink.recorded_block_dz``); else None."""
+    if not job.resume:
+        return None
+    try:
+        return VolumeSink.recorded_block_dz(
+            job.output_path, job.prefix, vol_geo.dim_x, vol_geo.dim_y,
+            vol_geo.dim_z)
+    except (OSError, ValueError) as e:
+        raise StageConstructionError(f"cannot read the manifest: {e}") from e
+
+
+def _resume_extent(job: ReconstructionJob, vol_geo: VolumeGeometry,
+                   recorded: Optional[int], n_shards: int = 1
+                   ) -> ReconstructionJob:
+    """The job a resume runs, at the block extent ``recorded`` in the
+    output's manifest: the manifest marks blocks by index, so a resumed
+    job cut to another extent would skip other slices than those written.
+    A job that forces no extent takes the recorded one; a forced extent
+    that plans to another, or a recorded one this run's ``n_shards``
+    ranks cannot take, raises ``StageConstructionError``.  ``recorded``
+    None (a new output, or a manifest from before extents were recorded)
+    leaves the job as it is."""
+    if recorded is None:
+        return job
+
+    def planned(dz: int) -> int:
+        return plan_z_blocks(vol_geo, block_dz=dz,
+                             num_shards=n_shards).dim_z_padded
+
+    if planned(recorded) != recorded:
+        raise StageConstructionError(
+            f"the output's manifest records blocks of {recorded} slices, "
+            f"which {n_shards} rank(s) cannot plan; resume with the ranks "
+            "that wrote it")
+    if job.block_dz is not None and planned(job.block_dz) != recorded:
+        raise StageConstructionError(
+            f"block_dz {job.block_dz} plans blocks of "
+            f"{planned(job.block_dz)} slices, but the output's manifest "
+            f"records blocks of {recorded}; resume with that extent, or "
+            "with none")
+    if job.block_dz is None:
+        logger.info("resume: blocks of %d slices, as the output's manifest "
+                    "records", recorded)
+    return dataclasses.replace(job, block_dz=recorded)
 
 
 def _widest_band(job, full_geo: VolumeGeometry,
@@ -588,6 +785,7 @@ def _run_job(job: ReconstructionJob) -> str:
 
     source = _job_source(job)
     try:
+        job = _resume_extent(job, vol_geo, _recorded_block_dz(job, vol_geo))
         plan = plan_job(job, vol_geo, device, source)
     except ValueError as e:
         raise StageConstructionError(str(e)) from e
@@ -595,7 +793,8 @@ def _run_job(job: ReconstructionJob) -> str:
 
     try:
         sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,
-                          vol_geo.dim_y, vol_geo.dim_z, resume=job.resume)
+                          vol_geo.dim_y, vol_geo.dim_z, resume=job.resume,
+                          block_dz=info.dim_z_padded)
     except (OSError, ValueError) as e:
         raise StageConstructionError(f"cannot open sink: {e}") from e
 

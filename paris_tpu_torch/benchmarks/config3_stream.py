@@ -19,7 +19,9 @@ decode, staging, weight, filter, K1, ddbvf, with the job's own plan.
     second 4 GiB volume.  The JAX driver's warm-up ran the timed job's own
     plan; on the H100 that made no difference to the timed job's
     reconstruct stage, measured in turns with this one (PERF.md, PR 7);
-  * the timed job: its ``StageTimers`` split (``reconstruct``,
+  * the timed job, with the job's own plan (``plan``: its "z-split" and
+    "block plan" lines; on the card ``app.card_block_dz`` splits it): its
+    ``StageTimers`` split (``reconstruct``,
     ``finalize+write``), its ingest split per block (``ingest_split``:
     the reconstruct stage's host seconds reading into the staging ring,
     waiting on staged chunks and enqueuing steps), its drain split per
@@ -69,8 +71,8 @@ from .full_scale_2048_3600 import (GATE_RMSE, RESULTS_DIR, card_record,
 from .golden_slab import finish_shards, start_shards, stop_shards
 from .synth_c5_3600 import BATCH, DONE_MARKER, his_path, synthesize
 
-__all__ = ["geometry", "scan_matches", "cached_scan", "workdir_or_temp", "run",
-           "main"]
+__all__ = ["geometry", "scan_matches", "cached_scan", "workdir_or_temp",
+           "warm_up", "run", "main"]
 
 SCAN_SUBDIR = "proj"
 
@@ -143,6 +145,25 @@ def workdir_or_temp(path: Optional[str]):
             yield d
 
 
+def warm_up(pdir: str, det: DetectorGeometry, n_proj: int, accuracy: str,
+            backend: str, wdir: str) -> float:
+    """The warm-up job: the first 16 frames of the scan in ``pdir``, copied
+    into ``wdir``, reconstructed into one 8-slice block (the first use of
+    the kernel library, the cuFFT plans and the CUDA context).  Returns
+    its seconds."""
+    os.makedirs(os.path.join(wdir, "proj"), exist_ok=True)
+    frames = np.concatenate([read_his(his_path(pdir, i)) for i in
+                             range(0, min(16, n_proj), BATCH)])
+    write_his(os.path.join(wdir, "proj", "w.his"), frames[:16],
+              number_dtype=np.float32)
+    t0 = time.perf_counter()
+    run_job(ReconstructionJob(
+        det=det, input_path=os.path.join(wdir, "proj"), output_path=wdir,
+        prefix="warm", accuracy=accuracy, backend=backend, block_dz=8,
+        max_blocks=1))
+    return time.perf_counter() - t0
+
+
 def run(size: int = 1024, accuracy: str = "fast", backend: str = "cuda",
         n_proj: int = 360, scandir: Optional[str] = None,
         workdir: Optional[str] = None,
@@ -172,19 +193,9 @@ def run(size: int = 1024, accuracy: str = "fast", backend: str = "cuda",
                                      golden_shards or os.cpu_count() or 1)
         res["synthesize_seconds"] = round(synth_s, 1)
         try:
-            wdir = os.path.join(work, "warm")
-            os.makedirs(os.path.join(wdir, "proj"), exist_ok=True)
-            pdir = os.path.join(scan, SCAN_SUBDIR)
-            frames = np.concatenate([read_his(his_path(pdir, i)) for i in
-                                     range(0, min(16, n_proj), BATCH)])
-            write_his(os.path.join(wdir, "proj", "w.his"), frames[:16],
-                      number_dtype=np.float32)
-            t0 = time.perf_counter()
-            run_job(ReconstructionJob(
-                det=det, input_path=os.path.join(wdir, "proj"),
-                output_path=wdir, prefix="warm", accuracy=accuracy,
-                backend=backend, block_dz=8, max_blocks=1))
-            res["warmup_seconds"] = round(time.perf_counter() - t0, 1)
+            res["warmup_seconds"] = round(warm_up(
+                os.path.join(scan, SCAN_SUBDIR), det, n_proj, accuracy,
+                backend, os.path.join(work, "warm")), 1)
         except BaseException:
             stop_shards(procs)
             raise
@@ -216,6 +227,7 @@ def run(size: int = 1024, accuracy: str = "fast", backend: str = "cuda",
         res["ingest_split"] = tap.ingest
         res["drain_split"] = tap.drain
         res["blocks"] = len(tap.block_rates)
+        res["plan"] = tap.plan
         rmse = gate_slabs(out, goldens, slabs)[mid]
     res["rel_rmse_vs_golden_center_slab"] = rmse
     res["kernel_only_gupd_per_s"] = kernel_gups

@@ -88,8 +88,9 @@ RESULTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 class _JobLogTap(logging.Handler):
-    """The job's per-block rates, ingest and drain splits and stage
-    timers, and where its projection cache lives, from its log records."""
+    """The job's per-block rates, ingest and drain splits (each with
+    ``at``, the host time it was logged) and stage timers, the plan it
+    took and where its projection cache lives, from its log records."""
 
     def __init__(self):
         super().__init__(logging.INFO)
@@ -97,6 +98,7 @@ class _JobLogTap(logging.Handler):
         self.ingest = []               # the ingest split per block
         self.drain = []                # the drain split per block
         self.cache = []                # "projection cache: ..." lines
+        self.plan = []                 # "z-split ..." and "block plan ..."
         self.timings = []              # "stage timings" texts
         self.band_rows = None          # (band rows, detector rows)
 
@@ -111,13 +113,16 @@ class _JobLogTap(logging.Handler):
                 "block": index, "from": origin, "reconstruct_s": rec_s,
                 "read_s": read_s, "read_chunks": chunks,
                 "stage_wait_s": wait_s, "step_enqueue_s": enqueue_s,
-                "steps": steps, "card_wait_s": card_s})
+                "steps": steps, "card_wait_s": card_s,
+                "at": record.created})
         elif record.msg.startswith("block %d drain"):
             index, d2h, write, wait, slabs, slices, pinned = record.args
             self.drain.append({
                 "block": index, "d2h_s": d2h, "write_s": write,
                 "wait_s": wait, "slabs": slabs, "slab_slices": slices,
-                "pinned_bytes": pinned})
+                "pinned_bytes": pinned, "at": record.created})
+        elif record.msg.startswith(("z-split", "block plan")):
+            self.plan.append(record.getMessage())
         elif record.msg.startswith("projection cache"):
             self.cache.append(record.getMessage())
         elif record.msg.startswith("stage timings"):

@@ -22,30 +22,64 @@ from . import ddbvf
 __all__ = ["VolumeSink"]
 
 
+def _read_manifest(manifest_path: str, dims: tuple) -> dict:
+    """The manifest at ``manifest_path`` when it describes a volume of
+    ``dims``, else {}."""
+    if not os.path.exists(manifest_path):
+        return {}
+    with open(manifest_path) as f:
+        m = json.load(f)
+    return m if tuple(m.get("dims", ())) == dims else {}
+
+
 class VolumeSink:
-    """Create-or-resume a ddbvf output with per-block completion tracking."""
+    """Create-or-resume a ddbvf output with per-block completion tracking.
+
+    Blocks are marked by index, so the manifest also records the block
+    extent they were cut to (``block_dz``, when the writer gives it): a
+    resumed job must take the same extent, or its block indices would
+    name other slices.  A manifest without the key (written by a sink
+    given no extent, as the JAX package's) resumes as before."""
 
     def __init__(self, output_dir: str, prefix: str, dim_x: int, dim_y: int,
-                 dim_z: int, *, resume: bool = False):
+                 dim_z: int, *, resume: bool = False,
+                 block_dz: Optional[int] = None):
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, f"{prefix}.ddbvf")
         self.manifest_path = self.path + ".manifest.json"
         self.dims = (dim_x, dim_y, dim_z)
         self._done: Set[int] = set()
+        self.block_dz = block_dz
 
         if resume and os.path.exists(self.path):
             if ddbvf.open_meta(self.path) != self.dims:
                 raise ValueError(
                     f"existing {self.path} has different dimensions; "
                     "cannot resume")
-            if os.path.exists(self.manifest_path):
-                with open(self.manifest_path) as f:
-                    m = json.load(f)
-                if tuple(m.get("dims", ())) == self.dims:
-                    self._done = set(m.get("completed_blocks", []))
+            m = _read_manifest(self.manifest_path, self.dims)
+            recorded = m.get("block_dz")
+            if None not in (recorded, block_dz) and recorded != block_dz:
+                raise ValueError(
+                    f"{self.manifest_path} records blocks of {recorded} "
+                    f"slices, not {block_dz}; cannot resume")
+            self._done = set(m.get("completed_blocks", []))
+            if block_dz is None:
+                self.block_dz = recorded
         else:
             ddbvf.create(self.path, dim_x, dim_y, dim_z)
             self._write_manifest()
+
+    @staticmethod
+    def recorded_block_dz(output_dir: str, prefix: str, dim_x: int,
+                          dim_y: int, dim_z: int) -> Optional[int]:
+        """The block extent the manifest of an existing output of these
+        dimensions records; None when there is no such output, or its
+        manifest records none."""
+        path = os.path.join(output_dir, f"{prefix}.ddbvf")
+        if not os.path.exists(path):
+            return None
+        return _read_manifest(path + ".manifest.json",
+                              (dim_x, dim_y, dim_z)).get("block_dz")
 
     @classmethod
     def attach(cls, output_dir: str, prefix: str, dim_x: int, dim_y: int,
@@ -60,22 +94,21 @@ class VolumeSink:
         self.path = os.path.join(output_dir, f"{prefix}.ddbvf")
         self.manifest_path = self.path + ".manifest.json"
         self.dims = (dim_x, dim_y, dim_z)
-        self._done = set()
         if ddbvf.open_meta(self.path) != self.dims:
             raise ValueError(
                 f"existing {self.path} has different dimensions")
-        if os.path.exists(self.manifest_path):
-            with open(self.manifest_path) as f:
-                m = json.load(f)
-            if tuple(m.get("dims", ())) == self.dims:
-                self._done = set(m.get("completed_blocks", []))
+        m = _read_manifest(self.manifest_path, self.dims)
+        self._done = set(m.get("completed_blocks", []))
+        self.block_dz = m.get("block_dz")
         return self
 
     def _write_manifest(self):
         tmp = self.manifest_path + ".tmp"
+        m = {"dims": self.dims, "completed_blocks": sorted(self._done)}
+        if self.block_dz is not None:
+            m["block_dz"] = self.block_dz
         with open(tmp, "w") as f:
-            json.dump({"dims": self.dims,
-                       "completed_blocks": sorted(self._done)}, f)
+            json.dump(m, f)
         os.replace(tmp, self.manifest_path)
 
     def is_done(self, block_index: int) -> bool:

@@ -25,10 +25,11 @@ from typing import Optional
 
 from ..app import (
     CARD_CACHE_MARGIN, ReconstructionJob, _auto_hbm_budget,
-    _block_hbm_bytes, _finish_writer, _free_hbm_bytes, _job_source,
-    _log_block_done, _overlap_free_est, _plan_cache, _plan_write_overlap,
-    _ProjectionCache, _drain_block, _reconstruct_block, _source_chunks,
-    _widest_band,
+    _block_hbm_bytes, _budget_max_dz, _finish_writer, _free_hbm_bytes,
+    _job_source, _log_block_done, _memory_rule_why, _overlap_free_est,
+    _plan_cache, _plan_write_overlap, _ProjectionCache, _drain_block,
+    _reconstruct_block, _recorded_block_dz, _resume_extent, _source_chunks,
+    _stream_bytes, _widest_band, card_block_dz,
 )
 from ..exceptions import ParisError, StageConstructionError, StageRuntimeError
 from ..geometry import apply_roi, derive_volume_geometry, plan_z_blocks
@@ -77,11 +78,23 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
     chunk -= chunk % world
     proj_bytes = 4 * job.det.n_row * job.det.n_col
     proj_buffer = 4 * proj_bytes * chunk
+    slot_filter = None
+    lo, hi = owned_slots(rank, world, chunk)
+    if world > 1:
+        # decode only this rank's slots: input decode scales with ranks
+        logger.info("disjoint input: this rank decodes %d of %d chunk "
+                    "slots", hi - lo, chunk)
+        slot_filter = lambda pos: lo <= pos % chunk < hi  # noqa: E731
+    source = _job_source(job, slot_filter)
     # probes of the card can differ between ranks; the block plan and the
     # overlap flag must not (shard offsets, order of the barriers), so the
-    # ranks take the smallest
-    auto_budget, free = multihost.agree_min(
-        _auto_hbm_budget(device), _free_hbm_bytes(device), device=device)
+    # ranks take the smallest of each input of the plan
+    auto_budget, free, recorded, card_bytes, host_bytes, frames = \
+        multihost.agree_min(
+            _auto_hbm_budget(device), _free_hbm_bytes(device),
+            _recorded_block_dz(job, vol_geo),
+            *_stream_bytes(source, job.det, chunk, (lo, hi)), device=device)
+    job = _resume_extent(job, vol_geo, recorded, n_shards=world)
     hbm_budget = job.hbm_budget_bytes
     if hbm_budget is None and auto_budget is not None:
         # each rank holds 1/n of a block, so the budget of one card
@@ -89,20 +102,32 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
         hbm_budget = auto_budget * world
         logger.info("auto device-memory budget: %.1f GB over %d rank(s)",
                     hbm_budget / 2**30, world)
-    try:
-        info = plan_z_blocks(vol_geo, hbm_budget_bytes=hbm_budget,
-                             proj_buffer_bytes=proj_buffer, num_shards=world,
-                             z_align=8, block_dz=job.block_dz)
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    logger.info("z-split: %d block(s) of %d slices (padded)",
-                info.num, info.dim_z_padded)
     # one rank's staging: its own slots, plus the gathered chunk and its
     # filtered temporary
     per_rank_proj = proj_buffer // world + 2 * proj_bytes * chunk
     free_est = _overlap_free_est(
         free, None if job.hbm_budget_bytes is None
         else job.hbm_budget_bytes // world)
+    block_dz = job.block_dz
+    why = _memory_rule_why(job, device, free_est)
+    if why is None:
+        block_dz, why = card_block_dz(
+            vol_geo, free_est=free_est, proj_buffer=per_rank_proj,
+            stream_card_bytes=card_bytes, stream_host_bytes=host_bytes,
+            n_proj=frames, frame_pixels=job.det.n_row * job.det.n_col,
+            n_shards=world, align=8 * world,
+            budget_dz=_budget_max_dz(hbm_budget, proj_buffer, vol_geo,
+                                     align=8 * world))
+    try:
+        info = plan_z_blocks(vol_geo, hbm_budget_bytes=hbm_budget,
+                             proj_buffer_bytes=proj_buffer, num_shards=world,
+                             z_align=8, block_dz=block_dz)
+    except ValueError as e:
+        raise StageConstructionError(str(e)) from e
+    logger.info("z-split: %d block(s) of %d slices (padded)",
+                info.num, info.dim_z_padded)
+    logger.info("block plan: %s", why if block_dz is not None
+                else f"the memory rule ({why})")
     info, overlap = _plan_write_overlap(
         job, vol_geo, info, free_est, per_rank_proj, hbm_budget=hbm_budget,
         proj_buffer=proj_buffer, n_shards=world)
@@ -112,7 +137,8 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
     try:
         if rank == 0:
             sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,
-                              vol_geo.dim_y, vol_geo.dim_z, resume=job.resume)
+                              vol_geo.dim_y, vol_geo.dim_z, resume=job.resume,
+                              block_dz=info.dim_z_padded)
         multihost.barrier("paris-sink-created")
         if rank != 0:
             sink = VolumeSink.attach(job.output_path, job.prefix,
@@ -133,14 +159,6 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
                 "accuracy %s", rec.backend, device, rank, world, chunk,
                 rec.accuracy)
 
-    slot_filter = None
-    lo, hi = owned_slots(rank, world, chunk)
-    if world > 1:
-        # decode only this rank's slots: input decode scales with ranks
-        logger.info("disjoint input: this rank decodes %d of %d chunk "
-                    "slots", hi - lo, chunk)
-        slot_filter = lambda pos: lo <= pos % chunk < hi  # noqa: E731
-    source = _job_source(job, slot_filter)
     # each rank caches its own slots, on its card when they fit beside its
     # share of the plan's accumulators
     card_room = None if device.type != "cuda" or free_est is None else (

@@ -840,3 +840,31 @@ def test_drain_pinned_bytes_stay_bounded_by_the_ring(cuda_device, tmp_path,
     ring = DRAIN_SLOTS * slab
     assert 0 < sizes[0] <= sizes[1] == sizes[2]
     assert ring <= sizes[1] <= ring + DRAIN_SLOTS * 4096
+
+
+# ------------------------------------------------------------ the plan
+
+@pytest.mark.cuda
+def test_config5_auto_plan_splits_on_this_card(cuda_device):
+    """Config 5 from 3600 uint16 frames (chunk 8), planned with this card's
+    free memory: where the card holds two accumulators beside the 30.2 GB
+    stream, the rule splits the volume, with the write overlap and the
+    stream kept on the card."""
+    import types
+    from paris_tpu_torch.app import (CARD_CACHE_MARGIN, ReconstructionJob,
+                                     _free_hbm_bytes, plan_job)
+    from paris_tpu_torch.benchmarks.synth_c5_3600 import config5
+    from paris_tpu_torch.geometry import derive_volume_geometry
+    det = config5(3600)
+    stream = 3600 * 2 * det.n_row * det.n_col
+    if _free_hbm_bytes(cuda_device) * 0.95 < (stream + CARD_CACHE_MARGIN
+                                              + 2 * 128 * 4 * 2048 ** 2):
+        pytest.skip("the card holds no split beside the stream")
+    table = types.SimpleNamespace(chunk_reads=lambda chunk, n=None: [
+        types.SimpleNamespace(dtype=np.dtype(np.uint16), rows=chunk)
+        for _ in range(3600 // chunk)])
+    job = ReconstructionJob(det=det, input_path="-", output_path="-",
+                            chunk_size=8, backend="cuda")
+    plan = plan_job(job, derive_volume_geometry(det), cuda_device, table)
+    assert plan.info.num > 1 and plan.overlap and plan.cache == "card"
+    assert plan.cache_bytes == stream
