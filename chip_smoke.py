@@ -129,7 +129,7 @@ Phases (each raises on failure; the script then exits non-zero):
      on the block count, three at both sizes, not on the size), one pair
      each; weak_scaling is not run (it measures gloo ranks on the CPU).
      Before each step the phase reserves the bytes the step will write and
-     fails if the run's total would pass 40 GiB.
+     fails if the run's total would pass 42 GiB.
 
   8. the job's z-block plan (paris_tpu_torch/app.py card_block_dz, used
      by plan_job and the distributed job): the auto plans, on this card
@@ -137,11 +137,28 @@ Phases (each raises on failure; the script then exits non-zero):
      frames, chunk 16) and of config 5 from 3600 uint16 frames (chunk 8),
      each with its blocks, write overlap, projection cache and the rule's
      reason; config 5's must split, with the overlap and the card cache.
-     Then a 480^3 job from 64 frames (fast) through cli.main in three
-     160-slice blocks and in one block: the two ddbvf files must be equal
-     byte for byte, the split job's seam slab z 158..161 within 1e-3 of
-     the golden oracle, and K1 and the u16 round trip launched once per
-     block and chunk.  Writes 0.88 GiB.
+     Phase 9 runs the split jobs against the one-block job.
+  9. a vertically offset detector (delta_s 4.6, delta_t -6.5 px; the
+     detector-row band of a multi-block job follows the backprojection's
+     -delta_t):
+     a. paris_tpu_torch/benchmarks/offset_detector.py at its defaults: a
+        512 x 384 detector (config 3's streaming geometry), the 521 x 521 x
+        397 volume, 256 frames synthesized on the card, fast mode from
+        uint16 counts and exact mode from float32; per mode, through
+        cli.main (--backend auto), the job's own plan, a forced split in
+        three blocks of 136 slices and the one-block plan (the auto job is
+        it when its plan is one block), and in fast mode the split job
+        again with --distributed (a world-1 NCCL group).  Every seam of
+        every plan and an interior slab within 1e-3 relative RMSE of the
+        golden oracle over the stored frames; every multi-block ddbvf
+        byte for byte the one-block ddbvf (the distributed one the split
+        one); K1 launched blocks x chunks times per job, and the u16 round
+        trip so in fast mode.  The golden oracle runs in 4 processes.
+        Writes ~2.8 GiB;
+     b. K1 at block 1 of that split (v_lo > 0), fed the block's band of
+        rows of seeded frames, in exact and fast mode: bit for bit the
+        kernel fed the whole detector, and within 1e-4 * max|plain| of the
+        plain version on the band.
 
 Disk: after each phase the script prints the bytes that phase wrote and
 the run's total: the bytes this process passed to write and pwrite
@@ -151,7 +168,7 @@ libraries, the golden oracle's partial slabs).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it lists the kernels with their launches (K1 and the u16 round trip: the
-jobs of phases 3, 5b, 6b and 8 and the main()s of phase 7, each counted
+jobs of phases 3, 5b, 6b and 9a and the main()s of phase 7, each counted
 from 0 just before it), errors, times and bounds (K1: ms per
 launch at the fast (64, 1024, 1024) slab; K3a/K3b: ms per (64, 128) tile
 of 64 gathers, the kernel's from a launch of 256 tiles; the u16 round
@@ -190,9 +207,14 @@ C5_BLOCK_DZ = 344
 C5_MAX_BLOCKS = 2        # of the 6 blocks: bounds the disk and the time
 C5_SLAB = (342, 4)       # straddles the seam between blocks 0 and 1
 C5_NUMBER_TYPE = "uint16"        # the scan as a flat-panel detector writes it
-DISK_LIMIT = 40 << 30    # bytes the whole run may write
+DISK_LIMIT = 42 << 30    # bytes the whole run may write
 AB_SIZE = 512            # the driver A/Bs' detector (phase 7d)
 STREAM_NPROJ = 360       # config3_stream's and the A/Bs' scan
+OFFSET_SIZE = 512        # phase 9: the offset detector's columns,
+OFFSET_ROWS = 384        # its rows,
+OFFSET_NPROJ = 256       # its frames,
+OFFSET_SPLIT_DZ = 136    # and its forced split: three blocks
+OFFSET_SHARDS = 4        # golden processes: each writes a partial per slab
 
 
 def phase_device():
@@ -1514,31 +1536,11 @@ def _plan_line(label, det, n_proj, dtype, chunk):
     return plan
 
 
-PLAN_SIZE = 480          # phase 8's detector and volume
-PLAN_NPROJ = 64
-PLAN_SPLIT_DZ = 160      # three blocks
-
-
-def phase_plan(workdir, disk):
-    """8: the job's z-block plan.  The auto plans of config3_stream's job
-    and of config 5 from 3600 uint16 frames on this card (no scan); then
-    a job split in three blocks against the one-block job of the same
-    scan, byte for byte, and the split job's seam against the golden
-    oracle.  Returns K1's and the u16 round trip's launches in the two
-    jobs."""
+def phase_plan():
+    """8: the job's z-block plan: the auto plans of config3_stream's job
+    and of config 5 from 3600 uint16 frames on this card (no scan)."""
     import numpy as np
-    from paris_tpu_torch import cli
-    from paris_tpu_torch.benchmarks.config3_stream import (SCAN_SUBDIR,
-                                                           cached_scan,
-                                                           geometry)
-    from paris_tpu_torch.benchmarks.full_scale_2048_3600 import (
-        job_log_tap, rel_rmse)
-    from paris_tpu_torch.geometry import derive_volume_geometry
-    from paris_tpu_torch.golden import golden_fdk_stream
-    from paris_tpu_torch.io import ddbvf
-    from paris_tpu_torch.io.geometry_file import dump_geometry_file
-    from paris_tpu_torch.io.his import read_his
-    from paris_tpu_torch.io.source import scan_directory
+    from paris_tpu_torch.benchmarks.config3_stream import geometry
     from paris_tpu_torch.benchmarks.synth_c5_3600 import config5
     print("z-block plan:")
     _plan_line(f"config3_stream (1024^3, {STREAM_NPROJ} float32 frames, "
@@ -1549,57 +1551,6 @@ def phase_plan(workdir, disk):
     if not (c5.info.num > 1 and c5.overlap and c5.cache == "card"):
         raise AssertionError("config 5's auto plan takes no split with the "
                              "write overlap and the card cache")
-
-    det = geometry(PLAN_SIZE, PLAN_NPROJ)
-    vol = derive_volume_geometry(det)
-    disk.reserve(PLAN_NPROJ * 4 * PLAN_SIZE ** 2 + 2 * vol.nbytes_f32,
-                 "phase 8")
-    work = os.path.join(workdir, "plan")
-    os.makedirs(work)
-    import torch
-    cached_scan(work, det, PLAN_NPROJ, torch.device("cuda", 0))
-    pdir = os.path.join(work, SCAN_SUBDIR)
-    geo = os.path.join(work, "scan.geo")
-    dump_geometry_file(det, geo)
-    seam = (PLAN_SPLIT_DZ - 2, 4)
-    frames = np.concatenate([read_his(p) for p in scan_directory(pdir)])
-    angles = np.arange(PLAN_NPROJ, dtype=np.float32) * det.delta_phi
-    (golden,) = golden_fdk_stream(zip(frames, angles), det, vol, [seam],
-                                  dtype=np.float32)
-    outs, seconds = {}, {}
-    _reset_counts()                              # this path starts here
-    for label, dz in (("split", PLAN_SPLIT_DZ), ("one block", vol.dim_z)):
-        with job_log_tap() as tap:
-            t0 = time.perf_counter()
-            rc = cli.main(["--geometry", geo, "--input", pdir, "--output",
-                           work, "--name", label.replace(" ", "_"),
-                           "--backend", "cuda", "--block-dz", str(dz),
-                           "--chunk-size", "16", "--accuracy", "fast"])
-            seconds[label] = time.perf_counter() - t0
-        if rc != 0:
-            raise RuntimeError(f"cli.main ({label}) exited {rc}")
-        outs[label] = os.path.join(work, label.replace(" ", "_") + ".ddbvf")
-        print(f"  {label}: {len(tap.ingest)} block(s), "
-              f"{seconds[label]:.2f} s; " + "; ".join(tap.plan))
-        _log_splits(tap, label)
-    launched, trips = _counts()
-    want = (3 + 1) * -(-PLAN_NPROJ // 16)
-    if launched != want or trips != want:
-        raise AssertionError(f"phase 8: K1 launched {launched} times, the "
-                             f"u16 round trip {trips}, expected {want}")
-    got = ddbvf.read_slices(outs["split"], *seam)
-    rmse = rel_rmse(got, golden)
-    same = _same_bytes(outs["split"], outs["one block"])
-    print(f"  {PLAN_SIZE}^3 from {PLAN_NPROJ} frames, fast: the split "
-          f"job's ddbvf byte-identical to the one-block job's: {same}; seam "
-          f"z {seam[0]}..{seam[0] + 3} relative RMSE {rmse:.2e}; K1 "
-          f"{launched} launches")
-    if not same:
-        raise AssertionError("the split job's ddbvf differs from the "
-                             "one-block job's")
-    if not rmse <= GATE_RMSE:
-        raise AssertionError(f"phase 8: seam RMSE {rmse:.3e} > {GATE_RMSE}")
-    return launched, trips
 
 
 def _same_bytes(a, b, block=64 << 20):
@@ -1612,6 +1563,119 @@ def _same_bytes(a, b, block=64 << 20):
                 return False
             if not x:
                 return True
+
+
+def phase_offset(workdir, disk):
+    """9a: the job at a vertically offset detector on the card
+    (paris_tpu_torch/benchmarks/offset_detector.py, its defaults); returns
+    K1's and the u16 round trip's launches in its jobs."""
+    from paris_tpu_torch.benchmarks import offset_detector as od
+    from paris_tpu_torch.geometry import derive_volume_geometry
+    det = od.geometry(OFFSET_SIZE, OFFSET_ROWS, OFFSET_NPROJ)
+    vol = derive_volume_geometry(det)
+    # the u16 and f32 scans and six volumes: fast auto (two blocks on the
+    # card), split, one block and split distributed; exact auto and split
+    disk.reserve(OFFSET_NPROJ * det.n_row * det.n_col * (2 + 4)
+                 + 6 * vol.nbytes_f32, "phase 9")
+    print(f"offset detector (delta_s {det.delta_s}, delta_t {det.delta_t} "
+          f"px): {det.n_row} x {det.n_col} detector, {vol.shape_zyx} volume, "
+          f"{OFFSET_NPROJ} frames, split blocks of {OFFSET_SPLIT_DZ}")
+    _reset_counts()                              # this path starts here
+    res = od.run(OFFSET_SIZE, OFFSET_ROWS, OFFSET_NPROJ, OFFSET_SPLIT_DZ,
+                 backend="auto", workdir=os.path.join(workdir, "offset"),
+                 shards=OFFSET_SHARDS)
+    launched, trips = _counts()
+    want = sum(r["blocks"] for r in res["modes"]["fast"]["jobs"].values())
+    for mode, m in res["modes"].items():
+        print(f"  {mode} from {m['number_type']} frames (synthesized in "
+              f"{m['synthesize_seconds']:.1f} s; golden waited "
+              f"{m['golden_wait_seconds']:.1f} s):")
+        for label, r in m["jobs"].items():
+            same = ("" if "same_bytes" not in r else
+                    f"; ddbvf byte-identical to the {r['same_bytes_as']} "
+                    f"job's: {r['same_bytes']}")
+            print(f"    {label}: {r['blocks']} block(s) of {r['block_dz']}, "
+                  f"{r['seconds']:.2f} s, K1 {r.get('k1_launches')}, band "
+                  f"{r['band_rows']}, relative RMSE "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in r["rel_rmse"].items())
+                  + same)
+            print(f"      {'; '.join(r['plan'])}")
+    if res["failures"]:
+        raise AssertionError("phase 9: " + "; ".join(res["failures"]))
+    if trips != want * -(-OFFSET_NPROJ // od.CHUNK):
+        raise AssertionError(f"phase 9: the u16 round trip ran {trips} times")
+    return launched, trips
+
+
+def phase_k1_offset(logs):
+    """9b: K1 at block 1 of the offset detector's split, fed the block's
+    band of rows (v_lo > 0) as the job feeds it; returns
+    max|kernel - plain|."""
+    import numpy as np
+    import torch
+    from paris_tpu_torch.benchmarks import offset_detector as od
+    from paris_tpu_torch.geometry import (derive_volume_geometry,
+                                          detector_row_band, plan_z_blocks)
+    from paris_tpu_torch.ops.backprojection_cuda import backproject_chunk_cuda
+    from paris_tpu_torch.ops.backprojection_torch import (
+        backproject_chunk_torch, make_bp_grid)
+    from paris_tpu_torch.pipeline import Reconstructor
+    det = od.geometry(OFFSET_SIZE, OFFSET_ROWS, OFFSET_NPROJ)
+    vol = derive_volume_geometry(det)
+    info = plan_z_blocks(vol, block_dz=OFFSET_SPLIT_DZ)
+    vp = max(hi - lo for lo, hi in (
+        detector_row_band(det, vol, b.z0, info.dim_z_padded)
+        for b in info.blocks))
+    shape = (info.dim_z_padded, vol.dim_y, vol.dim_x)
+    z0 = info.blocks[1].z0
+    v_lo = Reconstructor(det, vol, chunk_size=od.CHUNK, backend="cuda",
+                         block_shape=shape, v_band_width=vp)._v_band_lo(z0)
+    if not 0 < v_lo < det.n_col - vp:
+        raise AssertionError(f"phase 9: the band of block 1 starts at row "
+                             f"{v_lo}, not inside the detector")
+    dev = torch.device("cuda", 0)
+    grid = make_bp_grid(det, vol)
+    rng = np.random.default_rng(2027)
+    projs = rng.standard_normal((od.CHUNK, det.n_col, det.n_row)).astype(
+        np.float32)
+    phi = np.deg2rad(np.arange(od.CHUNK, dtype=np.float32) * det.delta_phi
+                     + np.float32(0.3)).astype(np.float32)
+    s = torch.as_tensor(np.sin(phi), device=dev)
+    c = torch.as_tensor(np.cos(phi), device=dev)
+    max_err = 0.0
+    print(f"K1 at the offset detector's block {shape}, z0={z0}, band rows "
+          f"{v_lo}..{v_lo + vp - 1} ({vp} of {det.n_col}); gates: banded == "
+          f"unbanded bit for bit, max|banded - plain| <= {GATE_KERNEL:g} * "
+          "max|plain|")
+    for dtype, mode in ((torch.float32, "exact"), (torch.bfloat16, "fast")):
+        p = torch.as_tensor(projs, device=dev).to(dtype).contiguous()
+        band = p[:, v_lo:v_lo + vp].contiguous()
+        banded = backproject_chunk_cuda(torch.zeros(shape, device=dev), band,
+                                        s, c, grid, z0, v_lo=v_lo)
+        whole = backproject_chunk_cuda(torch.zeros(shape, device=dev), p, s,
+                                       c, grid, z0)
+        plain = backproject_chunk_torch(torch.zeros(shape, device=dev), band,
+                                        s, c, grid, z0, v_lo=v_lo)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(banded, whole))
+        err = float((banded - plain).abs().max())
+        scale = float(plain.abs().max())
+        del banded, whole, plain
+        max_err = max(max_err, err)
+        ok = same and math.isfinite(err) and err <= GATE_KERNEL * scale
+        acc = torch.zeros(shape, device=dev)
+        ms = _time_ms(lambda: backproject_chunk_cuda(
+            acc, band, s, c, grid, z0, v_lo=v_lo), n=5, warmup=1)
+        text, bound, bound_by = _k1_profile(logs["backproject"], band, shape,
+                                            z0, grid)
+        print(f"  {mode:<5} banded == unbanded {same}, max|err| {err:.3e} "
+              f"max|plain| {scale:.3e}; kernel {ms:.3f} ms ({bound / ms:.1%} "
+              f"of the {bound:.3f} ms bound, {bound_by}); {text}  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K1 at the offset block failed ({mode})")
+        del acc, band, p
+    return max_err
 
 
 def main() -> int:
@@ -1642,9 +1706,13 @@ def main() -> int:
         bench_launches, bench_err = phase_benchmarks(workdir, disk)
         launches = [a + b for a, b in zip(launches, bench_launches)]
         max_abs_err = max(max_abs_err, bench_err)
+        phase_plan()
         launches = [a + b for a, b in zip(launches,
-                                          phase_plan(workdir, disk))]
-        disk.phase("phase 8")
+                                          phase_offset(workdir, disk))]
+        max_abs_err = max(max_abs_err, phase_k1_offset(logs))
+        disk.add(_file_bytes(os.path.join(workdir, "offset", "*",
+                                          "golden_*")))
+        disk.phase("phase 9")
     ms, plain_ms, bound, bound_by = timings[("fast", 64)]
     kernels = [{
         "name": "bp_kernel (fast: bf16 projections, f32 arithmetic)",

@@ -10,7 +10,10 @@
      (``PARIS_BENCH_CFG3_NPROJ``, 64) in two 512-slice blocks, chunk 8, in
      both modes; gates on the slab straddling the seam and on each slice
      beside it
-  4. offset-detector ROI: RMSE gate on the ROI crop
+  4. offset-detector ROI: RMSE gate on the ROI crop, reconstructed in one
+     block and by ``run_job`` from HIS files in blocks of
+     ``CFG4_BLOCK_DZ`` slices (each block fed only its band of detector
+     rows)
   5. the distributed path at world size 1: step throughput of a
      ``DistributedReconstructor`` in a group of one (NCCL on the card,
      gloo with ``--backend torch``), made by ``multihost.initialize`` and
@@ -53,7 +56,7 @@ from ..geometry import (DetectorGeometry, RegionOfInterest, apply_roi,
                         derive_volume_geometry)
 from ..golden import golden_fdk
 from ..io import ddbvf
-from ..io.his import read_his
+from ..io.his import read_his, write_his
 from ..io.source import scan_directory
 from ..parallel import multihost
 from ..parallel.dist import DistributedReconstructor
@@ -74,6 +77,7 @@ NAMES = {1: "shepp_logan_64", 2: "single_chip_256",
          5: "mesh_scaling"}
 GATE = f"<= {GATE_RMSE:g}"
 DET_256 = DetectorGeometry(256, 256, 1.0, 1.0, 0.0, 0.0, 2048.0, 1024.0, 0.5)
+CFG4_BLOCK_DZ = 16       # config 4's forced blocks: 16 + 16 + 8 ROI slices
 
 
 def config1(backend: str = "cuda", volumes: Optional[dict] = None) -> dict:
@@ -213,10 +217,29 @@ def config3(backend: str = "cuda", det: Optional[DetectorGeometry] = None,
     return res
 
 
+def _job_blocks(det, projs, roi, block_dz, backend):
+    """The ROI crop as ``run_job`` writes it from HIS files of ``projs`` in
+    z-blocks of ``block_dz`` slices (exact mode); returns (crop, number of
+    blocks)."""
+    with tempfile.TemporaryDirectory(prefix="paris_cfg4_") as d:
+        pdir = os.path.join(d, "proj")
+        os.makedirs(pdir)
+        write_his(os.path.join(pdir, "scan.his"), projs)
+        out = run_job(ReconstructionJob(
+            det=det, input_path=pdir, output_path=d, prefix="c4", roi=roi,
+            chunk_size=16, block_dz=block_dz, accuracy="exact",
+            backend=backend))
+        with open(out + ".manifest.json") as f:
+            blocks = len(json.load(f)["completed_blocks"])
+        return ddbvf.read_volume(out), blocks
+
+
 def config4(backend: str = "cuda", volumes: Optional[dict] = None) -> dict:
     """Offset-detector ROI at a reduced size, against the golden oracle on
-    the same crop.  ``volumes`` receives the reconstruction as ``ours``
-    and the oracle's crop as ``golden``."""
+    the same crop, in one block and in ``run_job``'s banded blocks (the
+    rows each block samples move with the vertical offset).  ``volumes`` receives the
+    reconstructions as ``ours`` and ``ours_blocks`` and the oracle's crop
+    as ``golden``."""
     det = DetectorGeometry(96, 80, 2.0, 2.0, 4.6, -1.5, 500.0, 500.0, 3.0)
     vol = derive_volume_geometry(det)
     angles = np.arange(120, dtype=np.float32) * 3.0
@@ -231,11 +254,15 @@ def config4(backend: str = "cuda", volumes: Optional[dict] = None) -> dict:
     golden = golden_fdk(projs, angles, det, vol, dz=roi_geo.dim_z,
                         dy=roi_geo.dim_y, dx=roi_geo.dim_x,
                         roi_offset=(roi.x1, roi.y1, roi.z1))
+    blocks, n_blocks = _job_blocks(det, projs, roi, CFG4_BLOCK_DZ, backend)
     rmse = rel_rmse(ours, golden)
+    rmse_blocks = rel_rmse(blocks, golden)
     if volumes is not None:
-        volumes.update(ours=ours, golden=golden)
+        volumes.update(ours=ours, ours_blocks=blocks, golden=golden)
     return {"config": 4, "name": NAMES[4], "rel_rmse_vs_golden": rmse,
-            "gate": GATE, "pass": rmse <= GATE_RMSE,
+            "blocks": n_blocks, "rel_rmse_vs_golden_blocks": rmse_blocks,
+            "gate": GATE,
+            "pass": rmse <= GATE_RMSE and rmse_blocks <= GATE_RMSE,
             **card_record(resolve_backend(backend)[1])}
 
 

@@ -268,6 +268,13 @@ def detector_row_band(
     the banded-broadcast optimization derived (but never implemented) in
     the reference docs (SURVEY.md §5 long-context,
     doc/"Geometrie - Definitionen für Subvolumen.pdf").
+
+    The band is placed where the backprojection samples: its detector
+    origin is ``v_min = -n_col*l_px_col/2 - delta_t*l_px_col``
+    (``BpGrid.v_min``, the reference's proj_real_coordinate), so a
+    vertical offset moves the band with the taps.  The cosine weighting
+    (``weighting_constants``) keeps the reference's ``+delta_t``; at
+    ``delta_t = 0`` the two agree.
     """
     d_so = abs(det.d_so)
     # corner (half-diagonal) radius, not the inscribed FOV radius: the
@@ -288,7 +295,7 @@ def detector_row_band(
     # worst-case detector v coordinate over the block (mm -> fractional px)
     t_lo = min(z_lo_mm * max_factor, z_lo_mm * det.d_sd / (d_so + r))
     t_hi = max(z_hi_mm * max_factor, z_hi_mm * det.d_sd / (d_so + r))
-    v_min_mm = det.delta_t * det.l_px_col - det.n_col * det.l_px_col / 2.0
+    v_min_mm = -det.delta_t * det.l_px_col - det.n_col * det.l_px_col / 2.0
     lo = int(math.floor((t_lo - v_min_mm) / det.l_px_col - 0.5)) - margin_px
     hi = int(math.ceil((t_hi - v_min_mm) / det.l_px_col + 0.5)) + 1 + margin_px
     return max(0, lo), min(det.n_col, max(0, hi))

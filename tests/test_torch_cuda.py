@@ -44,7 +44,7 @@ def bp_case(name):
     atol against the JAX ops) for one case of tests/test_pallas_kernel.py."""
     if name in ("zero", "accumulate", "z_offset_roi"):
         det, seed, ang = BASE, 7, [0.0, 33.0, 261.5]
-    elif name == "offset_detector":
+    elif name in ("offset_detector", "offset_block"):
         det, seed, ang = OFFSET, 9, [10.0, 190.0]
     else:
         det, seed, ang = TALL, 23, [15.0, 200.0]
@@ -55,6 +55,9 @@ def bp_case(name):
     shape, z_off, roi, atol = vol.shape_zyx, 0, (0, 0, 0), 1e-4
     if name == "z_offset_roi":
         shape, z_off, roi = (16, vol.dim_y, vol.dim_x), 24, (5, 3, 2)
+    elif name == "offset_block":
+        # a block inside the detector at delta_t = -2: band rows 26..50
+        shape, z_off = (16, vol.dim_y, vol.dim_x), 34
     elif name in ("top_edge", "tall_center"):
         # n_col=640, z0=536 (:254) and the centre; atol 5e-4 as in
         # test_pallas_kernel.py:156-159: v reaches ~600 px there, where
@@ -236,11 +239,12 @@ def test_wrapper_refuses_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", ["top_edge", "tall_center"])
+@pytest.mark.parametrize("name", ["top_edge", "tall_center", "offset_block"])
 def test_banded_kernel_on_card(cuda_device, name, dtype):
     """K1c: the kernel on the block's detector-row band equals the kernel
     on the whole detector bit for bit, and is within 1e-4 max|plain| of
-    the plain version on the same band."""
+    the plain version on the same band (at a vertically offset detector
+    too, where the band follows the backprojection's -delta_t)."""
     vol0, (p, s, c, grid, z_off, roi) = _on_card(cuda_device, name, dtype)
     det, vol = grid.det, grid.vol
     lo, hi = detector_row_band(det, vol, z_off, vol0.shape[0])

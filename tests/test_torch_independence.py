@@ -192,10 +192,20 @@ def test_plan_z_blocks_matches(name, kw):
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
 def test_bands_weights_and_filter_size_match(name):
+    """The port's band sits where the backprojection samples, at
+    ``-delta_t`` (``BpGrid.v_min``); the JAX package's Pallas band puts
+    the detector at ``+delta_t``.  So the port's band is the JAX
+    function's at the mirrored offset, and the JAX function's itself at
+    ``delta_t = 0``."""
     jdet, pdet, jvol, pvol = _vols(name)
+    mirrored = dataclasses.replace(jdet, delta_t=-jdet.delta_t)
+    centred = (dataclasses.replace(pdet, delta_t=0.0),
+               dataclasses.replace(jdet, delta_t=0.0))
     for z0, dz in ((0, 8), (pvol.dim_z // 2, 16), (pvol.dim_z - 4, 4)):
         assert port_geometry.detector_row_band(pdet, pvol, z0, dz) == \
-            jax_geometry.detector_row_band(jdet, jvol, z0, dz)
+            jax_geometry.detector_row_band(mirrored, jvol, z0, dz)
+        assert port_geometry.detector_row_band(centred[0], pvol, z0, dz) == \
+            jax_geometry.detector_row_band(centred[1], jvol, z0, dz)
     assert port_geometry.weighting_constants(pdet) == \
         jax_geometry.weighting_constants(jdet)
     for n in (pdet.n_row, pdet.n_col, 1, 1000, 1024, 2048):

@@ -78,6 +78,13 @@ def test_config_matches_the_jax_reconstruct(config):
     assert np.abs(ours - ref).max() <= 1e-4 * np.abs(ref).max()
     rmse = JAX_DRIVER._rel_rmse(ours, vols["golden"])
     assert rmse == pytest.approx(res["rel_rmse_vs_golden"], rel=1e-6)
+    if config == 4:
+        # the ROI in three banded blocks at the offset detector
+        blocks = vols["ours_blocks"]
+        assert res["blocks"] == 3 and blocks.shape == ref.shape
+        assert np.abs(blocks - ref).max() <= 1e-4 * np.abs(ref).max()
+        assert JAX_DRIVER._rel_rmse(blocks, vols["golden"]) == \
+            pytest.approx(res["rel_rmse_vs_golden_blocks"], rel=1e-6)
     assert res["pass"] and rmse <= 1e-3
     assert JAX_KEYS[config] <= set(res) and res["device"] == "cpu"
 
