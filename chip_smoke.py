@@ -44,10 +44,10 @@ Phases (each raises on failure; the script then exits non-zero):
      (reconstruct, read, stage_wait, step_enqueue, card_wait seconds;
      block 1 comes from the card cache), and the u16 round trip must run once per chunk in fast mode, never
      in exact mode.  Each job prints its drain split per block (d2h on
-     the card, write, wait seconds, slabs, the ring's pinned bytes: every
-     block drains slab by slab through a ring of pinned slots on a copy
-     stream, paris_tpu_torch/io/drain.py) and block 1's enqueue seconds
-     while block 0 drains; the traced job's traces must show the drain's
+     the card in a traced block, write, wait seconds, slabs, the ring's
+     pinned bytes: every block drains slab by slab through a ring of
+     pinned slots on a copy stream, paris_tpu_torch/io/drain.py) and
+     block 1's enqueue seconds while block 0 drains; the traced job's traces must show the drain's
      DtoH copies, on a stream other than K1's.  Then one config-3
      accumulator (512 slices, 500 of them valid) of seeded values is
      drained into a new ddbvf, which must equal volume.cpu() of those
@@ -578,8 +578,8 @@ def _log_drain(drains, label):
     """Print a job's drain split per block."""
     for d in drains:
         print(f"  {label}: block {d['block']} drain: d2h {d['d2h_s']:.3f} s "
-              f"on the card, write {d['write_s']:.3f} s, wait "
-              f"{d['wait_s']:.3f} s ({d['slabs']} slabs of "
+              f"on the card (traced blocks), write {d['write_s']:.3f} s, "
+              f"wait {d['wait_s']:.3f} s ({d['slabs']} slabs of "
               f"{d['slab_slices']} slices; ring {d['pinned_bytes']} pinned "
               "bytes)")
 
@@ -751,8 +751,7 @@ def _drain_equality(workdir, dz, dim_z):
     os.remove(path)
     t, c = split.totals, split.counts
     print(f"  drain of one {shape} block, {dim_z} valid slices: "
-          f"{seconds:.3f} s (d2h {t.get('d2h', 0.0):.3f} s on the card, "
-          f"write {t.get('write', 0.0):.3f} s, wait "
+          f"{seconds:.3f} s (write {t.get('write', 0.0):.3f} s, wait "
           f"{t.get('copy_wait', 0.0):.3f} s; {c.get('write', 0)} slabs of "
           f"{drain.slices} slices; ring {drain.pinned_bytes} pinned bytes); "
           f"volume.cpu() of them alone {cpu_s:.3f} s; byte-identical to "

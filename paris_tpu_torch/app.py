@@ -56,7 +56,8 @@ from .io.source import ProjectionSource
 from .utils.logging import StageTimers, fmt_duration
 from .pipeline import (Reconstructor, _STAGE_WORKERS, resolve_backend,
                        stage_stream)
-from .utils.profiling import ThroughputMeter, annotate, trace
+from .utils import profiling
+from .utils.profiling import ThroughputMeter, span, trace
 
 logger = logging.getLogger("paris_tpu_torch.app")
 
@@ -87,8 +88,9 @@ class ReconstructionJob:
     # cap of the host projection cache; None = the smaller of 64 GiB and
     # half of the host's available memory (``resolve_cache_cap``)
     max_cache_bytes: Optional[int] = None
-    # one torch.profiler Chrome trace per block: its reconstruct stage,
-    # then the wait for the previous block's drain (a "drain_wait" range)
+    # one torch.profiler Chrome trace per block: its reconstruct stage (a
+    # "block" span), then the wait for the previous block's drain (a
+    # "drain_wait" span)
     trace_dir: Optional[str] = None
     # Stop after computing this many NEW blocks (None = all); completed
     # blocks are durable in the sink manifest, so re-running with
@@ -628,7 +630,7 @@ class _ProjectionCache:
         once a pass filled it, else from ``chunks()`` ((chunk, angles)
         pairs) through ``stage_stream``, kept on this first pass when the
         plan caches.  ``timers`` gets the staging's "read" and
-        "stage_wait" seconds.  Sets ``origin`` to what served the
+        "stage_wait" spans' seconds.  Sets ``origin`` to what served the
         block."""
         if self.kept is not None and self.place == "card":
             self.origin = "card cache"
@@ -672,20 +674,19 @@ def _reconstruct_block(rec, job: ReconstructionJob, block, info,
     meter = ThroughputMeter(block.dim_z * vol_geo.dim_y * vol_geo.dim_x)
     split = StageTimers()            # this block's ingest split
     enqueued = collections.deque()   # events after the steps in flight
-    with split.time("reconstruct"):
+    with span("block", timers=split):
         # consumed on THIS thread; reads into the staging ring and the
         # copies to the card run on stage_stream's worker threads
         for staged, k in cache.staged(rec, chunks, split):
-            with split.time("step_enqueue"):
-                volume = rec.step_staged(volume, staged, z_offset=block.z0,
-                                         roi_offset=roi)
+            volume = rec.step_staged(volume, staged, z_offset=block.z0,
+                                     roi_offset=roi, timers=split)
             if device.type == "cuda":
                 # stay at most STEP_LEAD steps ahead of the card, so that
                 # the staged chunks the card has yet to read stay few
                 enqueued.append(torch.cuda.Event())
                 enqueued[-1].record()
                 if len(enqueued) > STEP_LEAD:
-                    with split.time("card_wait"):
+                    with span("card_wait", timers=split):
                         enqueued.popleft().synchronize()
             if first:
                 # time-to-first-chunk marker: the first step of a
@@ -709,32 +710,34 @@ def _reconstruct_block(rec, job: ReconstructionJob, block, info,
 
 
 def _log_ingest(block, split: StageTimers, origin: str) -> None:
-    """The block's ingest split, host seconds: its reconstruct stage
-    (until the card has finished); "read", the staging workers' fills of
-    the ring (HIS files, or the host cache, into a slot; summed over the
-    workers, which read in parallel); "stage_wait", the consumer waiting
-    on a staged chunk (the host holds the card back); "step_enqueue", the
-    consumer enqueuing the steps; "card_wait", the consumer waiting for
-    the card to come within ``STEP_LEAD`` steps (the card holds the host
-    back).  The rest of the stage is the card finishing the last steps."""
+    """The block's ingest split, host seconds of its spans: "reconstruct",
+    the "block" span (until the card has finished); "read", the staging
+    workers' fills of the ring (HIS files, or the host cache, into a
+    slot; summed over the workers, which read in parallel); "stage_wait",
+    the consumer waiting on a staged chunk (the host holds the card
+    back); "step_enqueue", the "step" spans, the consumer enqueuing the
+    steps; "card_wait", the consumer waiting for the card to come within
+    ``STEP_LEAD`` steps (the card holds the host back).  The rest of the
+    stage is the card finishing the last steps."""
     t, c = split.totals, split.counts
     logger.info("block %d ingest from the %s: reconstruct %.3f s, read "
                 "%.3f s (%d chunks), stage_wait %.3f s, step_enqueue %.3f s "
                 "(%d steps), card_wait %.3f s", block.index, origin,
-                t["reconstruct"], t.get("read", 0.0), c.get("read", 0),
-                t.get("stage_wait", 0.0), t.get("step_enqueue", 0.0),
-                c.get("step_enqueue", 0), t.get("card_wait", 0.0))
+                t["block"], t.get("read", 0.0), c.get("read", 0),
+                t.get("stage_wait", 0.0), t.get("step", 0.0),
+                c.get("step", 0), t.get("card_wait", 0.0))
 
 
 def _drain_block(drain: BlockDrain, write, block, timers: StageTimers
                  ) -> None:
     """Run ``write(split)``, the block's drain through ``drain``, as the
-    job's "finalize+write" stage; merge its split into ``timers`` and log
-    it: "d2h", the slabs' copies on the card (CUDA events; 0 on the CPU);
-    "write", the host seconds of the pwrites; "wait", the writer waiting
-    on a slab's copy (the copy holds the write back)."""
+    job's "drain" span; merge its split into ``timers`` and log it:
+    "d2h", the slabs' copies on the card (the "d2h" spans' CUDA events,
+    so only in a profiled block; 0 otherwise and on the CPU); "write",
+    the host seconds of the pwrites; "wait", the writer waiting on a
+    slab's copy (the copy holds the write back)."""
     split = StageTimers()
-    with timers.time("finalize+write"):
+    with span("drain", timers=timers):
         write(split)
     timers.merge(split)
     t, c = split.totals, split.counts
@@ -756,10 +759,12 @@ def run_job(job: ReconstructionJob) -> str:
 
     Raises ``StageConstructionError`` if the pipeline cannot be built
     (bad geometry, paths or backend) and ``StageRuntimeError`` if it
-    fails mid-stream — the reference's two exception tiers.
+    fails mid-stream — the reference's two exception tiers.  The job is
+    one "job" span (``profiling.job``).
     """
     try:
-        return _run_job(job)
+        with profiling.job():
+            return _run_job(job)
     except (ParisError, KeyboardInterrupt):
         raise
     except (OSError, ValueError) as e:
@@ -767,61 +772,66 @@ def run_job(job: ReconstructionJob) -> str:
 
 
 def _run_job(job: ReconstructionJob) -> str:
+    """The job's "job_setup" span from its start to its first block
+    (geometry, plan, sink, ``Reconstructor``, rings, writer), then the
+    blocks."""
     t_start = time.perf_counter()
     timers = StageTimers()
 
-    try:
-        full_geo = derive_volume_geometry(job.det)
-        backend, device = resolve_backend(job.backend)
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    logger.info("volume [vx]: %d x %d x %d, voxel %.4f mm",
-                full_geo.dim_x, full_geo.dim_y, full_geo.dim_z,
-                full_geo.l_vx_x)
-    vol_geo = apply_roi(full_geo, job.roi) if job.roi else full_geo
-    if job.roi:
-        logger.info("ROI volume [vx]: %d x %d x %d",
-                    vol_geo.dim_x, vol_geo.dim_y, vol_geo.dim_z)
+    with span("job_setup", timers=timers):
+        try:
+            full_geo = derive_volume_geometry(job.det)
+            backend, device = resolve_backend(job.backend)
+        except ValueError as e:
+            raise StageConstructionError(str(e)) from e
+        logger.info("volume [vx]: %d x %d x %d, voxel %.4f mm",
+                    full_geo.dim_x, full_geo.dim_y, full_geo.dim_z,
+                    full_geo.l_vx_x)
+        vol_geo = apply_roi(full_geo, job.roi) if job.roi else full_geo
+        if job.roi:
+            logger.info("ROI volume [vx]: %d x %d x %d",
+                        vol_geo.dim_x, vol_geo.dim_y, vol_geo.dim_z)
 
-    source = _job_source(job)
-    try:
-        job = _resume_extent(job, vol_geo, _recorded_block_dz(job, vol_geo))
-        plan = plan_job(job, vol_geo, device, source)
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    info, overlap = plan.info, plan.overlap
+        source = _job_source(job)
+        try:
+            job = _resume_extent(job, vol_geo,
+                                 _recorded_block_dz(job, vol_geo))
+            plan = plan_job(job, vol_geo, device, source)
+        except ValueError as e:
+            raise StageConstructionError(str(e)) from e
+        info, overlap = plan.info, plan.overlap
 
-    try:
-        sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,
-                          vol_geo.dim_y, vol_geo.dim_z, resume=job.resume,
-                          block_dz=info.dim_z_padded)
-    except (OSError, ValueError) as e:
-        raise StageConstructionError(f"cannot open sink: {e}") from e
+        try:
+            sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,
+                              vol_geo.dim_y, vol_geo.dim_z, resume=job.resume,
+                              block_dz=info.dim_z_padded)
+        except (OSError, ValueError) as e:
+            raise StageConstructionError(f"cannot open sink: {e}") from e
 
-    try:
-        rec = Reconstructor(
-            job.det, full_geo, chunk_size=job.chunk_size, backend=backend,
-            block_shape=(info.dim_z_padded, vol_geo.dim_y, vol_geo.dim_x),
-            accuracy=job.accuracy, device=device,
-            v_band_width=_widest_band(job, full_geo, info),
-        )
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    logger.info("backend: %s on %s, chunk size %d, accuracy %s",
-                rec.backend, device, rec.chunk_size, rec.accuracy)
+        try:
+            rec = Reconstructor(
+                job.det, full_geo, chunk_size=job.chunk_size, backend=backend,
+                block_shape=(info.dim_z_padded, vol_geo.dim_y, vol_geo.dim_x),
+                accuracy=job.accuracy, device=device,
+                v_band_width=_widest_band(job, full_geo, info),
+            )
+        except ValueError as e:
+            raise StageConstructionError(str(e)) from e
+        logger.info("backend: %s on %s, chunk size %d, accuracy %s",
+                    rec.backend, device, rec.chunk_size, rec.accuracy)
 
-    cache = _ProjectionCache(plan.cache)
-    n_done = 0
+        cache = _ProjectionCache(plan.cache)
+        n_done = 0
 
-    if overlap and info.num > 1:
-        logger.info("write overlap: block k+1 reconstructs while "
-                    "block k drains to disk")
-    # one ring of pinned slots for every block of the job
-    drain = BlockDrain(device, (vol_geo.dim_y, vol_geo.dim_x),
-                       info.dim_z_padded)
-    writer = concurrent.futures.ThreadPoolExecutor(
-        1, thread_name_prefix="paris-write")
-    pending: Optional[concurrent.futures.Future] = None
+        if overlap and info.num > 1:
+            logger.info("write overlap: block k+1 reconstructs while "
+                        "block k drains to disk")
+        # one ring of pinned slots for every block of the job
+        drain = BlockDrain(device, (vol_geo.dim_y, vol_geo.dim_x),
+                           info.dim_z_padded)
+        writer = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="paris-write")
+        pending: Optional[concurrent.futures.Future] = None
 
     def _finalize_write(vol_state, blk, ready):
         def write(split):
@@ -853,7 +863,7 @@ def _run_job(job: ReconstructionJob) -> str:
                 # bound in-flight accumulators at 2 (this block's + the
                 # one draining); also surfaces writer-thread errors.  In
                 # the block's trace, which so holds the drain's copies
-                with annotate("drain_wait"):
+                with span("drain_wait"):
                     if pending is not None:
                         pending.result()
                         pending = None

@@ -21,8 +21,8 @@ decode, staging, weight, filter, K1, ddbvf, with the job's own plan.
     reconstruct stage, measured in turns with this one (PERF.md, PR 7);
   * the timed job, with the job's own plan (``plan``: its "z-split" and
     "block plan" lines; on the card ``app.card_block_dz`` splits it): its
-    ``StageTimers`` split (``reconstruct``,
-    ``finalize+write``), its ingest split per block (``ingest_split``:
+    ``StageTimers`` split (its spans ``block``, the reconstruct stage,
+    and ``drain``, the finalize and write), its ingest split per block (``ingest_split``:
     the reconstruct stage's host seconds reading into the staging ring,
     waiting on staged chunks and enqueuing steps), its drain split per
     block (``drain_split``: the slabs' copies on the card, the pwrites,
@@ -213,11 +213,11 @@ def run(size: int = 1024, accuracy: str = "fast", backend: str = "cuda",
             out = run_job(job)
             dt = time.perf_counter() - t0
         stages = stage_seconds(tap.timings[-1])
-        rec_s = stages["reconstruct"]
+        rec_s = stages["block"]
         updates = vol.voxels * n_proj
         res["reconstruct_seconds"] = round(rec_s, 2)
         res["finalize_write_seconds"] = round(
-            stages.get("finalize+write", 0.0), 2)
+            stages.get("drain", 0.0), 2)
         res["end_to_end_seconds"] = round(dt, 2)
         res["gupd_per_s_stream_reconstruct"] = round(updates / rec_s / 1e9, 2)
         res["gupd_per_s_end_to_end"] = round(updates / dt / 1e9, 2)

@@ -111,14 +111,14 @@ def run(size: int = 1024, quality: int = 10, backend: str = "cuda",
                 output_path=os.path.join(work, mode), prefix="v",
                 quality=quality, accuracy="fast", backend=backend),
             pairs, backend, os.path.join(work, "reference.ddbvf"))
-    rec_s = {m: statistics.median(s["reconstruct"] for _, s in runs[m])
+    rec_s = {m: statistics.median(s["block"] for _, s in runs[m])
              for m in MODES}
     pps = {m: n_proj / rec_s[m] for m in MODES}
     ratio = pps["distributed"] / pps["single"]
     return {"name": "dist_parity_ab_mesh1", "size": size,
             "n_proj": n_proj, "quality": quality, "pairs": pairs,
             "reconstruct_s": rec_s,
-            "reconstruct_s_all": {m: [s["reconstruct"] for _, s in runs[m]]
+            "reconstruct_s_all": {m: [s["block"] for _, s in runs[m]]
                                   for m in MODES},
             "wall_s_all": {m: [w for w, _ in runs[m]] for m in MODES},
             "proj_per_s": {m: round(v, 1) for m, v in pps.items()},

@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from . import ddbvf
-from ..pipeline import _Ring, _timed
-from ..utils.profiling import annotate
+from ..pipeline import _Ring
+from ..utils.profiling import count, span
 
 __all__ = ["BlockDrain", "SLAB_BYTES", "DRAIN_SLOTS", "slab_slices"]
 
@@ -97,9 +97,10 @@ class BlockDrain:
         block's last step (on the card; by default an event recorded now
         on the current stream, so the drain waits for the work queued
         there that writes ``volume``).  ``split`` (a ``StageTimers``)
-        gets "d2h" (the slabs' copies on the card, from CUDA events),
-        "write" (the pwrites, one count per slab) and "copy_wait" (the
-        writer waiting on a slab's copy)."""
+        gets "d2h" (the slabs' copies on the card: the "d2h" spans' device
+        seconds, so only while a profiler runs), "write" (the pwrites, one
+        count per slab) and "copy_wait" (the writer waiting on a slab's
+        copy), each a span."""
         if tuple(volume.shape[1:]) != self.slice_shape:
             raise ValueError(f"accumulator slices {tuple(volume.shape[1:])} "
                              f"are not the drain's {self.slice_shape}")
@@ -107,8 +108,9 @@ class BlockDrain:
         if volume.device.type != "cuda":
             host = volume.detach().contiguous().numpy()
             for o, s in self.slabs(n):
-                with _timed(split, "write"):
+                with span("write", timers=split):
                     ddbvf.write_slices(path, host[o:o + s], z0 + o)
+                count("ddbvf_bytes_written", host[o:o + s].nbytes)
             return n
         with torch.cuda.device(volume.device):
             self._drain_card(volume, path, z0, n, ready, split)
@@ -129,31 +131,33 @@ class BlockDrain:
         def issue(o: int, s: int) -> None:
             slot = self._ring.acquire(shape, np.float32)
             try:
-                start = torch.cuda.Event(enable_timing=True)
-                done = torch.cuda.Event(enable_timing=True)
+                done = torch.cuda.Event()
                 dst = slot.buf.view(torch.float32).view(shape)[:s]
-                with torch.cuda.stream(stream), annotate("d2h"):
-                    start.record(stream)
+                with torch.cuda.stream(stream), \
+                        span("d2h", device=True) as d2h:
                     dst.copy_(volume[o:o + s], non_blocking=True)
                     done.record(stream)
                 slot.event = done
             except BaseException:
                 slot.lock.release()
                 raise
-            inflight.append((slot, o, s, start, done))
+            count("d2h_bytes", dst.nbytes)
+            inflight.append((slot, o, s, d2h, done))
 
         try:
             for o, s in itertools.islice(slabs, DRAIN_SLOTS):
                 issue(o, s)
             while inflight:
-                slot, o, s, start, done = inflight.popleft()
+                slot, o, s, d2h, done = inflight.popleft()
                 try:
-                    with _timed(split, "copy_wait"):
+                    with span("copy_wait", timers=split):
                         done.synchronize()
-                    if split is not None:
-                        split.add("d2h", start.elapsed_time(done) / 1e3)
-                    with _timed(split, "write"):
+                    seconds = d2h.device_seconds()
+                    if split is not None and seconds is not None:
+                        split.add("d2h", seconds)
+                    with span("write", timers=split):
                         ddbvf.write_slices(path, slot.frames[:s], z0 + o)
+                    count("ddbvf_bytes_written", slot.frames[:s].nbytes)
                 finally:
                     slot.lock.release()
                 nxt: Optional[Tuple[int, int]] = next(slabs, None)

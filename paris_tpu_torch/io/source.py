@@ -103,6 +103,18 @@ class ChunkRead:
             uncovered[a - lo:b - lo] = False
         out[:len(uncovered)][uncovered] = 0
 
+    def file_bytes(self, lo: int = 0, hi: Optional[int] = None) -> int:
+        """Bytes of stored frames that ``read_into(out, lo, hi)`` reads
+        from the files."""
+        hi = self.rows if hi is None else min(hi, self.rows)
+        total = 0
+        for f, _, count, row in self.runs:
+            n = min(row + count, hi) - max(row, lo)
+            if n > 0:
+                total += (n * f.header.width * f.header.height
+                          * f.header.dtype.itemsize)
+        return total
+
 
 def scan_directory(path: str, extensions: Sequence[str] = (".his",)) -> List[str]:
     """Sorted list of projection files in a directory."""

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ..utils.profiling import span
 from .backprojection_torch import (BpGrid, backproject_chunk_torch,
                                    kernel_constants)
 
@@ -252,12 +253,18 @@ def backproject_chunk(volume, projections, sin_phi, cos_phi, grid,
                       z_offset: int = 0,
                       roi_offset: Tuple[int, int, int] = (0, 0, 0),
                       v_lo: int = 0) -> torch.Tensor:
-    """In-place backprojection of one chunk: the CUDA kernel for tensors
-    on the card, the plain PyTorch version for tensors on the CPU."""
+    """In-place backprojection of one chunk, the "step.k1" span (plan,
+    library, launch; timed on the card by its events): the CUDA kernel for
+    tensors on the card, the plain PyTorch version for tensors on the
+    CPU."""
     if volume.device.type == "cuda":
-        return backproject_chunk_cuda(volume, projections, sin_phi, cos_phi,
-                                      grid, z_offset, roi_offset, v_lo)
+        with span("step.k1", device=True):
+            return backproject_chunk_cuda(volume, projections, sin_phi,
+                                          cos_phi, grid, z_offset,
+                                          roi_offset, v_lo)
     if volume.device.type == "cpu":
-        return backproject_chunk_torch(volume, projections, sin_phi, cos_phi,
-                                       grid, z_offset, roi_offset, v_lo)
+        with span("step.k1"):
+            return backproject_chunk_torch(volume, projections, sin_phi,
+                                           cos_phi, grid, z_offset,
+                                           roi_offset, v_lo)
     raise ValueError(f"no backprojection for device {volume.device}")

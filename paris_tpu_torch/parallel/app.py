@@ -37,7 +37,8 @@ from ..io.drain import BlockDrain
 from ..io.sink import VolumeSink
 from ..pipeline import resolve_backend
 from ..utils.logging import StageTimers, fmt_duration
-from ..utils.profiling import annotate, trace
+from ..utils import profiling
+from ..utils.profiling import span, trace
 from . import multihost
 from .dist import DistributedReconstructor, owned_slots
 from .mesh import world_and_rank
@@ -51,9 +52,10 @@ def run_job_distributed(job: ReconstructionJob) -> str:
     """Run a full reconstruction over the ranks of the default process
     group (``multihost.initialize``); returns the output ddbvf path.
     Every rank calls it with the same job.  Raises as ``app.run_job``
-    does."""
+    does.  The rank's job is one "job" span (``profiling.job``)."""
     try:
-        return _run_job_distributed(job)
+        with profiling.job():
+            return _run_job_distributed(job)
     except (ParisError, KeyboardInterrupt):
         raise
     except (OSError, ValueError) as e:
@@ -61,121 +63,129 @@ def run_job_distributed(job: ReconstructionJob) -> str:
 
 
 def _run_job_distributed(job: ReconstructionJob) -> str:
+    """The rank's "job_setup" span (agreements, plan, sink,
+    ``DistributedReconstructor``, rings, writer), then the blocks."""
     t_start = time.perf_counter()
     timers = StageTimers()
-    world, rank = world_and_rank()
+    with span("job_setup", timers=timers):
+        world, rank = world_and_rank()
 
-    try:
-        full_geo = derive_volume_geometry(job.det)
-        backend, device = resolve_backend(job.backend)
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    vol_geo = apply_roi(full_geo, job.roi) if job.roi else full_geo
-    logger.info("volume [vx]: %d x %d x %d over %d rank(s)",
-                vol_geo.dim_x, vol_geo.dim_y, vol_geo.dim_z, world)
+        try:
+            full_geo = derive_volume_geometry(job.det)
+            backend, device = resolve_backend(job.backend)
+        except ValueError as e:
+            raise StageConstructionError(str(e)) from e
+        vol_geo = apply_roi(full_geo, job.roi) if job.roi else full_geo
+        logger.info("volume [vx]: %d x %d x %d over %d rank(s)",
+                    vol_geo.dim_x, vol_geo.dim_y, vol_geo.dim_z, world)
 
-    chunk = max(job.chunk_size, world)
-    chunk -= chunk % world
-    proj_bytes = 4 * job.det.n_row * job.det.n_col
-    proj_buffer = 4 * proj_bytes * chunk
-    slot_filter = None
-    lo, hi = owned_slots(rank, world, chunk)
-    if world > 1:
-        # decode only this rank's slots: input decode scales with ranks
-        logger.info("disjoint input: this rank decodes %d of %d chunk "
-                    "slots", hi - lo, chunk)
-        slot_filter = lambda pos: lo <= pos % chunk < hi  # noqa: E731
-    source = _job_source(job, slot_filter)
-    # probes of the card can differ between ranks; the block plan and the
-    # overlap flag must not (shard offsets, order of the barriers), so the
-    # ranks take the smallest of each input of the plan
-    auto_budget, free, recorded, card_bytes, host_bytes, frames = \
-        multihost.agree_min(
-            _auto_hbm_budget(device), _free_hbm_bytes(device),
-            _recorded_block_dz(job, vol_geo),
-            *_stream_bytes(source, job.det, chunk, (lo, hi)), device=device)
-    job = _resume_extent(job, vol_geo, recorded, n_shards=world)
-    hbm_budget = job.hbm_budget_bytes
-    if hbm_budget is None and auto_budget is not None:
-        # each rank holds 1/n of a block, so the budget of one card
-        # scales to all of them
-        hbm_budget = auto_budget * world
-        logger.info("auto device-memory budget: %.1f GB over %d rank(s)",
-                    hbm_budget / 2**30, world)
-    # one rank's staging: its own slots, plus the gathered chunk and its
-    # filtered temporary
-    per_rank_proj = proj_buffer // world + 2 * proj_bytes * chunk
-    free_est = _overlap_free_est(
-        free, None if job.hbm_budget_bytes is None
-        else job.hbm_budget_bytes // world)
-    block_dz = job.block_dz
-    why = _memory_rule_why(job, device, free_est)
-    if why is None:
-        block_dz, why = card_block_dz(
-            vol_geo, free_est=free_est, proj_buffer=per_rank_proj,
-            stream_card_bytes=card_bytes, stream_host_bytes=host_bytes,
-            n_proj=frames, frame_pixels=job.det.n_row * job.det.n_col,
-            n_shards=world, align=8 * world,
-            budget_dz=_budget_max_dz(hbm_budget, proj_buffer, vol_geo,
-                                     align=8 * world))
-    try:
-        info = plan_z_blocks(vol_geo, hbm_budget_bytes=hbm_budget,
-                             proj_buffer_bytes=proj_buffer, num_shards=world,
-                             z_align=8, block_dz=block_dz)
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    logger.info("z-split: %d block(s) of %d slices (padded)",
-                info.num, info.dim_z_padded)
-    logger.info("block plan: %s", why if block_dz is not None
-                else f"the memory rule ({why})")
-    info, overlap = _plan_write_overlap(
-        job, vol_geo, info, free_est, per_rank_proj, hbm_budget=hbm_budget,
-        proj_buffer=proj_buffer, n_shards=world)
+        chunk = max(job.chunk_size, world)
+        chunk -= chunk % world
+        proj_bytes = 4 * job.det.n_row * job.det.n_col
+        proj_buffer = 4 * proj_bytes * chunk
+        slot_filter = None
+        lo, hi = owned_slots(rank, world, chunk)
+        if world > 1:
+            # decode only this rank's slots: input decode scales with ranks
+            logger.info("disjoint input: this rank decodes %d of %d chunk "
+                        "slots", hi - lo, chunk)
+            slot_filter = lambda pos: lo <= pos % chunk < hi  # noqa: E731
+        source = _job_source(job, slot_filter)
+        # probes of the card can differ between ranks; the block plan and the
+        # overlap flag must not (shard offsets, order of the barriers), so the
+        # ranks take the smallest of each input of the plan
+        auto_budget, free, recorded, card_bytes, host_bytes, frames = \
+            multihost.agree_min(
+                _auto_hbm_budget(device), _free_hbm_bytes(device),
+                _recorded_block_dz(job, vol_geo),
+                *_stream_bytes(source, job.det, chunk, (lo, hi)),
+                device=device)
+        job = _resume_extent(job, vol_geo, recorded, n_shards=world)
+        hbm_budget = job.hbm_budget_bytes
+        if hbm_budget is None and auto_budget is not None:
+            # each rank holds 1/n of a block, so the budget of one card
+            # scales to all of them
+            hbm_budget = auto_budget * world
+            logger.info("auto device-memory budget: %.1f GB over %d rank(s)",
+                        hbm_budget / 2**30, world)
+        # one rank's staging: its own slots, plus the gathered chunk and its
+        # filtered temporary
+        per_rank_proj = proj_buffer // world + 2 * proj_bytes * chunk
+        free_est = _overlap_free_est(
+            free, None if job.hbm_budget_bytes is None
+            else job.hbm_budget_bytes // world)
+        block_dz = job.block_dz
+        why = _memory_rule_why(job, device, free_est)
+        if why is None:
+            block_dz, why = card_block_dz(
+                vol_geo, free_est=free_est, proj_buffer=per_rank_proj,
+                stream_card_bytes=card_bytes, stream_host_bytes=host_bytes,
+                n_proj=frames, frame_pixels=job.det.n_row * job.det.n_col,
+                n_shards=world, align=8 * world,
+                budget_dz=_budget_max_dz(hbm_budget, proj_buffer, vol_geo,
+                                         align=8 * world))
+        try:
+            info = plan_z_blocks(vol_geo, hbm_budget_bytes=hbm_budget,
+                                 proj_buffer_bytes=proj_buffer,
+                                 num_shards=world,
+                                 z_align=8, block_dz=block_dz)
+        except ValueError as e:
+            raise StageConstructionError(str(e)) from e
+        logger.info("z-split: %d block(s) of %d slices (padded)",
+                    info.num, info.dim_z_padded)
+        logger.info("block plan: %s", why if block_dz is not None
+                    else f"the memory rule ({why})")
+        info, overlap = _plan_write_overlap(
+            job, vol_geo, info, free_est, per_rank_proj, hbm_budget=hbm_budget,
+            proj_buffer=proj_buffer, n_shards=world)
 
-    # rank 0 creates the shared ddbvf, the others attach after a barrier
-    # (creating it twice would truncate what another rank wrote)
-    try:
-        if rank == 0:
-            sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,
-                              vol_geo.dim_y, vol_geo.dim_z, resume=job.resume,
-                              block_dz=info.dim_z_padded)
-        multihost.barrier("paris-sink-created")
-        if rank != 0:
-            sink = VolumeSink.attach(job.output_path, job.prefix,
-                                     vol_geo.dim_x, vol_geo.dim_y,
-                                     vol_geo.dim_z)
-    except (OSError, ValueError) as e:
-        raise StageConstructionError(f"cannot open sink: {e}") from e
+        # rank 0 creates the shared ddbvf, the others attach after a barrier
+        # (creating it twice would truncate what another rank wrote)
+        try:
+            if rank == 0:
+                sink = VolumeSink(job.output_path, job.prefix, vol_geo.dim_x,
+                                  vol_geo.dim_y, vol_geo.dim_z,
+                                  resume=job.resume,
+                                  block_dz=info.dim_z_padded)
+            multihost.barrier("paris-sink-created")
+            if rank != 0:
+                sink = VolumeSink.attach(job.output_path, job.prefix,
+                                         vol_geo.dim_x, vol_geo.dim_y,
+                                         vol_geo.dim_z)
+        except (OSError, ValueError) as e:
+            raise StageConstructionError(f"cannot open sink: {e}") from e
 
-    try:
-        rec = DistributedReconstructor(
-            job.det, full_geo, chunk_size=chunk,
-            block_shape=(info.dim_z_padded, vol_geo.dim_y, vol_geo.dim_x),
-            backend=backend, v_band_width=_widest_band(job, full_geo, info),
-            accuracy=job.accuracy, device=device)
-    except ValueError as e:
-        raise StageConstructionError(str(e)) from e
-    logger.info("backend: %s on %s, rank %d of %d, chunk size %d, "
-                "accuracy %s", rec.backend, device, rank, world, chunk,
-                rec.accuracy)
+        try:
+            rec = DistributedReconstructor(
+                job.det, full_geo, chunk_size=chunk,
+                block_shape=(info.dim_z_padded, vol_geo.dim_y, vol_geo.dim_x),
+                backend=backend,
+                v_band_width=_widest_band(job, full_geo, info),
+                accuracy=job.accuracy, device=device)
+        except ValueError as e:
+            raise StageConstructionError(str(e)) from e
+        logger.info("backend: %s on %s, rank %d of %d, chunk size %d, "
+                    "accuracy %s", rec.backend, device, rank, world, chunk,
+                    rec.accuracy)
 
-    # each rank caches its own slots, on its card when they fit beside its
-    # share of the plan's accumulators
-    card_room = None if device.type != "cuda" or free_est is None else (
-        free_est - (2 if overlap else 1)
-        * _block_hbm_bytes(vol_geo, info.dim_z_padded) // world
-        - per_rank_proj - CARD_CACHE_MARGIN)
-    place, _ = _plan_cache(job, info, source, chunk, (lo, hi), card_room)
-    cache = _ProjectionCache(place)
-    n_done = 0
-    if overlap and info.num > 1:
-        logger.info("write overlap: block k+1 reconstructs while "
-                    "block k drains to disk")
-    # one ring of pinned slots for every block of the job
-    drain = BlockDrain(device, (vol_geo.dim_y, vol_geo.dim_x), rec.local_dz)
-    writer = concurrent.futures.ThreadPoolExecutor(
-        1, thread_name_prefix="paris-write")
-    pending = None          # (future, block) of the draining block
+        # each rank caches its own slots, on its card when they fit beside its
+        # share of the plan's accumulators
+        card_room = None if device.type != "cuda" or free_est is None else (
+            free_est - (2 if overlap else 1)
+            * _block_hbm_bytes(vol_geo, info.dim_z_padded) // world
+            - per_rank_proj - CARD_CACHE_MARGIN)
+        place, _ = _plan_cache(job, info, source, chunk, (lo, hi), card_room)
+        cache = _ProjectionCache(place)
+        n_done = 0
+        if overlap and info.num > 1:
+            logger.info("write overlap: block k+1 reconstructs while "
+                        "block k drains to disk")
+        # one ring of pinned slots for every block of the job
+        drain = BlockDrain(device, (vol_geo.dim_y, vol_geo.dim_x),
+                           rec.local_dz)
+        writer = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="paris-write")
+        pending = None          # (future, block) of the draining block
 
     def _drain(vol_state, blk, ready):
         """Writer thread: local work only, no collective."""
@@ -218,7 +228,7 @@ def _run_job_distributed(job: ReconstructionJob) -> str:
                     # bound in-flight accumulators at 2 (this block's and
                     # the draining one); surfaces writer errors.  In the
                     # block's trace, which so holds the drain's copies
-                    with annotate("drain_wait"):
+                    with span("drain_wait"):
                         _drain_pending()
                 pending = (writer.submit(_drain, volume, block, ready), block)
                 # drop the loop's reference now: without overlap the wait

@@ -35,6 +35,7 @@ from ..geometry import DetectorGeometry, VolumeGeometry
 
 from ..ops.backprojection_cuda import backproject_chunk
 from ..pipeline import Reconstructor
+from ..utils.profiling import count, span
 from . import multihost
 from .mesh import group_backend, world_and_rank
 
@@ -105,24 +106,29 @@ class DistributedReconstructor(Reconstructor):
     def _gather(self, t: torch.Tensor) -> torch.Tensor:
         out = torch.empty((self.world * t.shape[0],) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
+        with span("allgather", device=t.is_cuda):
+            dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
         return out
 
     def step_staged(self, volume: torch.Tensor, staged, *,
                     z_offset: int = 0,
-                    roi_offset: Tuple[int, int, int] = (0, 0, 0)
-                    ) -> torch.Tensor:
-        """Accumulate one staged chunk into this rank's slab IN PLACE.
-        Runs three collectives: call it from one thread only."""
-        chunk, sin, cos, n = self._ready(staged)[:4]
-        rx1, ry1, rz1 = roi_offset
-        z0 = rz1 + z_offset
-        filtered, v_lo = self._filter_band(chunk, n, z0)
-        return backproject_chunk(
-            volume, self._gather(filtered), self._gather(sin),
-            self._gather(cos), self.grid,
-            z_offset=z0 + self.rank * self.local_dz,
-            roi_offset=(rx1, ry1, 0), v_lo=v_lo)
+                    roi_offset: Tuple[int, int, int] = (0, 0, 0),
+                    timers=None) -> torch.Tensor:
+        """Accumulate one staged chunk into this rank's slab IN PLACE, as
+        the "step" span (see ``Reconstructor.step_staged``), its gathers
+        "allgather" spans.  Runs three collectives: call it from one
+        thread only."""
+        with span("step", timers=timers):
+            count("steps")
+            chunk, sin, cos, n = self._ready(staged)[:4]
+            rx1, ry1, rz1 = roi_offset
+            z0 = rz1 + z_offset
+            filtered, v_lo = self._filter_band(chunk, n, z0)
+            return backproject_chunk(
+                volume, self._gather(filtered), self._gather(sin),
+                self._gather(cos), self.grid,
+                z_offset=z0 + self.rank * self.local_dz,
+                roi_offset=(rx1, ry1, 0), v_lo=v_lo)
 
     def write_shards(self, volume: torch.Tensor, path: str, z_base: int,
                      dim_z_valid: int, *, drain, ready=None,

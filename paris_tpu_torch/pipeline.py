@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import contextlib
 import itertools
 import os
 import threading
@@ -34,7 +33,8 @@ from .ops.weighting import weight_map
 from .ops.filtering import ramp_filter_spectrum, filter_projections
 from .ops.backprojection_torch import make_bp_grid
 from .ops.backprojection_cuda import backproject_chunk
-from .utils.profiling import annotate
+from .io.source import ChunkRead
+from .utils.profiling import count, span
 
 __all__ = ["Reconstructor", "reconstruct", "preprocess_chunk",
            "dequantize_chunk", "quantize_chunk_u16", "identity_qparams",
@@ -168,11 +168,6 @@ _STAGE_WORKERS = 2
 _RING_SLOTS = 4
 
 
-def _timed(timers, name: str):
-    return timers.time(name) if timers is not None else \
-        contextlib.nullcontext()
-
-
 def stage_stream(stage_fn, pairs, *, depth: int = 3,
                  workers: int = _STAGE_WORKERS, timers=None):
     """Run ``stage_fn(data, angles)`` on a thread pool, keeping up to
@@ -192,7 +187,7 @@ def stage_stream(stage_fn, pairs, *, depth: int = 3,
                 futs.append((ex.submit(stage_fn, data, ang), len(ang)))
             while futs:
                 fut, n = futs.popleft()
-                with _timed(timers, "stage_wait"):
+                with span("stage_wait", timers=timers):
                     staged = fut.result()
                 nxt = next(pairs, None)
                 if nxt is not None:
@@ -477,7 +472,8 @@ class Reconstructor:
             if self.device.type != "cuda":
                 return Staged(slot.buf.view(dtype).view(shape),
                               slot.trig_t[0], slot.trig_t[1], n, None, host)
-            with torch.cuda.stream(self._copy_stream), annotate("h2d"):
+            with torch.cuda.stream(self._copy_stream), \
+                    span("h2d", device=True):
                 dev = torch.empty(slot.buf.shape, dtype=torch.uint8,
                                   device=self.device)
                 dev.copy_(slot.buf, non_blocking=True)
@@ -486,6 +482,7 @@ class Reconstructor:
                 trig.copy_(slot.trig_t, non_blocking=True)
                 ready = torch.cuda.Event()
                 ready.record(self._copy_stream)
+            count("h2d_bytes", slot.buf.numel() + 4 * slot.trig_t.numel())
             slot.event = ready
             return Staged(dev.view(dtype).view(shape), trig[0], trig[1], n,
                           ready, host)
@@ -507,9 +504,11 @@ class Reconstructor:
         type made float32), or anything with ``rows``, ``dtype`` and
         ``read_into(out, lo, hi)``: a ``ChunkRead`` reads its frames from
         the HIS files straight into the slot, an ``ArrayRows`` copies
-        them.  ``timers`` gets the fill's seconds as "read"; ``keep``
-        asks for the rows in host memory too (``Staged.host``).  Keep the
-        result referenced until its step is enqueued.
+        them.  ``timers`` gets the fill's seconds as "read" (a span); the
+        bytes a ``ChunkRead`` reads from the files count as
+        "his_bytes_read"; ``keep`` asks for the rows in host memory too
+        (``Staged.host``).  Keep the result referenced until its step is
+        enqueued.
         """
         data = chunk if hasattr(chunk, "read_into") else ArrayRows(chunk)
         lo, hi = self._stage_rows
@@ -521,9 +520,11 @@ class Reconstructor:
         slot = self._slot((hi - lo, self.det.n_col, self.det.n_row),
                           data.dtype)
         try:
-            with _timed(timers, "read"):
+            with span("read", timers=timers):
                 data.read_into(slot.frames, lo, hi)
                 slot.frames[n:] = 0
+            if isinstance(data, ChunkRead):
+                count("his_bytes_read", data.file_bytes(lo, hi))
             slot.trig[0] = np.sin(phi)
             slot.trig[1] = np.cos(phi)
             host = None
@@ -545,20 +546,26 @@ class Reconstructor:
         row).  Conversion, the round trip, dequantization and weighting
         are elementwise once a frame's qparams are known, and the filter
         runs along each detector row, so cutting the band first gives the
-        rows that cutting last would."""
+        rows that cutting last would.  Conversion, round trip and
+        dequantization are the "step.prep" span, weighting, filter and
+        cast "step.filter"."""
         v_lo = self._v_band_lo(z0_global)
         rows = slice(v_lo, v_lo + self._vp)
-        frames = _as_float32(chunk)
-        if self.accuracy == "fast":
-            qparams = _u16_params(frames, n)
-            band = u16_round_trip(frames[:, rows], qparams)
-        else:
-            band = dequantize_chunk(frames[:, rows],
-                                    self._identity_qparams(chunk.shape[0]))
-        filtered = preprocess_chunk(band, self._weights[rows],
-                                    self._spectrum, self.det.n_row)
-        dtype = torch.bfloat16 if self.accuracy == "fast" else torch.float32
-        return filtered.to(dtype).contiguous(), v_lo
+        on_card = chunk.is_cuda
+        with span("step.prep", device=on_card):
+            frames = _as_float32(chunk)
+            if self.accuracy == "fast":
+                qparams = _u16_params(frames, n)
+                band = u16_round_trip(frames[:, rows], qparams)
+            else:
+                band = dequantize_chunk(
+                    frames[:, rows], self._identity_qparams(chunk.shape[0]))
+        with span("step.filter", device=on_card):
+            filtered = preprocess_chunk(band, self._weights[rows],
+                                        self._spectrum, self.det.n_row)
+            dtype = torch.bfloat16 if self.accuracy == "fast" \
+                else torch.float32
+            return filtered.to(dtype).contiguous(), v_lo
 
     def _identity_qparams(self, c: int) -> torch.Tensor:
         if c not in self._identity:
@@ -579,15 +586,19 @@ class Reconstructor:
 
     def step_staged(self, volume: torch.Tensor, staged, *,
                     z_offset: int = 0,
-                    roi_offset: Tuple[int, int, int] = (0, 0, 0)
-                    ) -> torch.Tensor:
-        """Accumulate one ``Staged`` chunk into ``volume`` IN PLACE."""
-        chunk, sin, cos, n = self._ready(staged)[:4]
-        rx1, ry1, rz1 = roi_offset
-        filtered, v_lo = self._filter_band(chunk, n, rz1 + z_offset)
-        return backproject_chunk(volume, filtered, sin, cos, self.grid,
-                                 z_offset=rz1 + z_offset,
-                                 roi_offset=(rx1, ry1, 0), v_lo=v_lo)
+                    roi_offset: Tuple[int, int, int] = (0, 0, 0),
+                    timers=None) -> torch.Tensor:
+        """Accumulate one ``Staged`` chunk into ``volume`` IN PLACE: the
+        "step" span (its host seconds into ``timers`` when given), holding
+        "step.prep", "step.filter" and "step.k1"."""
+        with span("step", timers=timers):
+            count("steps")
+            chunk, sin, cos, n = self._ready(staged)[:4]
+            rx1, ry1, rz1 = roi_offset
+            filtered, v_lo = self._filter_band(chunk, n, rz1 + z_offset)
+            return backproject_chunk(volume, filtered, sin, cos, self.grid,
+                                     z_offset=rz1 + z_offset,
+                                     roi_offset=(rx1, ry1, 0), v_lo=v_lo)
 
     def accumulate(self, volume: torch.Tensor, projections, angles_deg, *,
                    z_offset: int = 0,

@@ -1,1 +1,1 @@
-from .profiling import trace, annotate, ThroughputMeter
+from .profiling import trace, span, job, collected, ThroughputMeter

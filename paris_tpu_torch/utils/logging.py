@@ -4,10 +4,8 @@ timers and a throughput reporter, SURVEY.md §5 tracing)."""
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import threading
-import time
 from typing import Dict, Optional
 
 __all__ = ["setup_logging", "StageTimers", "fmt_duration"]
@@ -27,8 +25,9 @@ def fmt_duration(seconds: float) -> str:
 
 
 class StageTimers:
-    """Accumulating named wall-clock timers; threads may time into one
-    (the staging workers' "read" beside the consumer's)."""
+    """Accumulating named wall-clock totals, fed by the spans
+    (``utils/profiling.span``) given them; threads may add to one (the
+    staging workers' "read" beside the consumer's)."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -39,14 +38,6 @@ class StageTimers:
         with self._lock:
             self.totals[name] = self.totals.get(name, 0.0) + seconds
             self.counts[name] = self.counts.get(name, 0) + count
-
-    @contextlib.contextmanager
-    def time(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0)
 
     def merge(self, other: "StageTimers") -> None:
         """Add ``other``'s totals and counts to these."""

@@ -22,7 +22,7 @@ from paris_tpu_torch import geometry as port_geometry
 from paris_tpu_torch.app import ReconstructionJob, run_job
 from paris_tpu_torch.cli import main as cli_main
 from paris_tpu_torch.exceptions import ParisError, StageConstructionError
-from paris_tpu_torch.utils.profiling import annotate, trace
+from paris_tpu_torch.utils.profiling import span, trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -164,15 +164,17 @@ def test_run_job_trace_dir_not_ported(scan, tmp_path):
 
 
 def test_annotate_without_nvtx(tmp_path, monkeypatch):
-    """Without a card, annotate names a region in the trace and never
-    touches NVTX (whose calls raise on a CPU build of torch)."""
-    def no_nvtx(*_a, **_k):
-        raise AssertionError("NVTX touched without a card")
+    """Without a card, a span (what annotated a region before) names a
+    region in the trace and never touches NVTX or a CUDA event (whose
+    calls raise on a CPU build of torch)."""
+    def no_card(*_a, **_k):
+        raise AssertionError("NVTX or a CUDA event touched without a card")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(torch.cuda.nvtx, "range", no_nvtx)
-    monkeypatch.setattr(torch.cuda.nvtx, "range_push", no_nvtx)
+    monkeypatch.setattr(torch.cuda.nvtx, "range", no_card)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", no_card)
+    monkeypatch.setattr(torch.cuda, "Event", no_card)
     with trace(str(tmp_path)):
-        with annotate("paris-annotated-region"):
+        with span("paris-annotated-region"):
             torch.ones(8).sum()
     (t,) = _traces(tmp_path)
     assert any(e.get("name") == "paris-annotated-region"

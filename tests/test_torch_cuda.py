@@ -872,3 +872,50 @@ def test_config5_auto_plan_splits_on_this_card(cuda_device):
     plan = plan_job(job, derive_volume_geometry(det), cuda_device, table)
     assert plan.info.num > 1 and plan.overlap and plan.cache == "card"
     assert plan.cache_bytes == stream
+
+
+# ------------------------------------------------------------ the tracer
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accuracy", ["fast", "exact"])
+def test_device_timed_spans_hold_to_the_kernels_of_the_trace(
+        cuda_device, tmp_path, accuracy):
+    """Steps at config 3's 64-slice slab, from a u16 chunk, profiled by
+    ``trace()`` with the card held busy first (so the host runs ahead
+    and no step waits on it): every device-timed span reads above zero,
+    and "step.k1"'s device seconds fall within 2 % of the summed time of
+    the kernels named ``bp_kernel`` in the same Chrome trace."""
+    import json
+    import os
+    from paris_tpu_torch.benchmarks.k1_compare import config3
+    from paris_tpu_torch.pipeline import Reconstructor
+    from paris_tpu_torch.utils import profiling
+    det, vol = config3()
+    steps, C = 12, 16
+    rec = Reconstructor(det, vol, chunk_size=C, backend="cuda",
+                        accuracy=accuracy, device=cuda_device,
+                        block_shape=(64, vol.dim_y, vol.dim_x))
+    frames = np.random.default_rng(5).integers(
+        0, 60000, size=(C, det.n_col, det.n_row), dtype=np.uint16)
+    ang = np.arange(C, dtype=np.float32) * det.delta_phi
+    volume = rec.init_block()
+    rec.step_staged(volume, rec.stage_chunk(frames, ang), z_offset=480)
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path), cuda_device):
+        staged = rec.stage_chunk(frames, ang)
+        torch.cuda._sleep(50_000_000)
+        for _ in range(steps):
+            rec.step_staged(volume, staged, z_offset=480)
+        torch.cuda.synchronize()
+    spans = profiling.collected()["spans"]
+    for name in ("h2d", "step.prep", "step.filter", "step.k1"):
+        assert spans[name]["device_s"] > 0, name
+    assert spans["step"]["device_s"] is None
+    assert spans["step.k1"]["count"] == steps
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    k1_s = sum(e["dur"] for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"
+               and "bp_kernel" in e.get("name", "")) / 1e6
+    assert spans["step.k1"]["device_s"] == pytest.approx(k1_s, rel=0.02)

@@ -173,7 +173,7 @@ def test_full_scale_3600_runner(scan, monkeypatch, accuracy):
     assert len([k for k in res if k.startswith("rel_rmse")]) == 3
     assert len(res["per_block_gupd_per_s"]) == job_plan.info.num
     assert [d["block"] for d in res["per_block_drain"]] == [0, 1, 2]
-    assert {"reconstruct", "finalize+write"} <= set(res["stage_seconds"])
+    assert {"block", "drain"} <= set(res["stage_seconds"])
     assert res["device"] == "cpu" and res["n_proj"] == N_PROJ
     assert res["name"] == f"full_scale_2048_{N_PROJ}proj_single_card" + (
         "" if accuracy == "fast" else "_exact")
