@@ -16,7 +16,8 @@
 // volume is read and written once per chunk of C projections, which
 // amortises its bytes C-fold.  So the bound is arithmetic (about 2 ms for a
 // (512, 1024, 1024) block at C = 16 on the card's 67 TFLOP/s), and what the
-// kernel must do is keep the issue slots busy: the taps must not stall.
+// kernel must do is keep the issue slots busy: the taps must not stall, and
+// each update must issue few instructions beyond its arithmetic.
 //
 // What the design does about that.  One thread owns one (x, y) column and
 // ZR consecutive z slices, accumulated in registers; a block is 32 (x) by
@@ -26,19 +27,41 @@
 //  * Footprint tiles.  The detector pixels a block reads for one angle lie
 //    in a small rectangle (about 40 x 24 pixels at the 1024-class geometry).
 //    In a prologue one thread per angle bounds it from the block's corners
-//    (corner_footprint).  The rectangle is then copied into shared memory,
-//    and every tap reads shared memory with a 32-bit offset.
-//  * Asynchronous copies.  The copies are cp.async (16 B, through the
-//    cuda_pipeline primitives) into a ring of NS tiles: while angle c
-//    accumulates, the tiles of angles c+1 .. c+NS-1 are in flight.  Where a
-//    row's bytes are not 16-B aligned (n_row * sizeof(T) % 16 != 0), the
-//    block copies element by element instead, synchronously.
-//  * A branch-free z step.  The detector-border test on v becomes a 0/1
-//    factor on the weight, and the tap row is clamped into the tile, so the
-//    ZR slices' loads issue back to back.
-//  * An interior z step.  v grows with z, so where the first and the last
-//    slice of a thread's ZR are on the detector and in the tile, every
-//    slice is: that z step drops the factor and the clamps.
+//    (corner_footprint).  The rectangle is then copied into a tile of the
+//    projections' type in shared memory, and every tap reads shared memory.
+//    The wrapper plans the tile's pitch from the footprint's width, rounded
+//    up to 128 B where the ring still fits, so rows lie a multiple of 32
+//    banks apart.
+//  * Copies.  Rows go by cp.async (16 B, the cuda_pipeline primitives)
+//    into a ring of NS tiles: while angle c accumulates, the tiles of
+//    angles c+1 .. c+NS-1 are in flight.  Where a row's bytes are not 16-B
+//    aligned, the block copies element by element, synchronously.  A power
+//    of two of threads shares a tile row, each keeping one column and
+//    striding over the rows: no division per copy.  bf16 taps (fast mode)
+//    are widened as they are read, which is exact.
+//  * An interior z step with no conversion.  v grows with z, so where the
+//    first and the last slice of a thread's ZR are on the detector and in
+//    the tile, every slice is.  There 0 <= v < 2^22, and floor(v) is a
+//    round-down add of 1.5 * 2^23 (the float's bits less 0x4B400000 are
+//    the tap row), so the update issues no FRND or F2I: the row goes into
+//    the one multiply-add that makes the upper taps' address, and the lower
+//    taps are a pitch further.  Tiles of FAST_PITCH (64) elements, the
+//    pitch of footprints up to 64 columns wide, have a kernel of their own
+//    in which that pitch is a constant: the row is one shift-add and the
+//    lower taps sit at an immediate offset, one instruction less an update.
+//    SASS (cuobjdump -sass, sm_90a, shape 0, cp.async, FAST_PITCH): 17
+//    instructions per interior update in float32 (FMUL, FADD for v;
+//    FADD.RM, FADD, FADD for the floor and fv; LEA; 4 LDS; 7 for the lerps
+//    and the accumulate), 21 in bf16 (4 widenings).
+//  * A branch-free border z step for the rest.  The detector-border test
+//    on v becomes a 0/1 factor on the weight, and the tap row is clamped
+//    into the tile, so the ZR slices' loads issue back to back.  A last z
+//    group of fewer than ZR slices repeats the block's last slice, so it
+//    takes the interior step too.
+//  * Taps in groups.  Both z steps load the taps of eight slices before
+//    their lerps (accumulate), so that 32 loads are in flight together:
+//    global taps, which wait on L1 and L2, take 30-47 % less time so, and
+//    shared ones 1-8 %.
 //  * A register budget: __launch_bounds__(threads, 4), 64 registers at
 //    256 threads, so four blocks share an SM.
 //  * No ring fits.  Where no block shape's ring fits the shared memory (a
@@ -46,6 +69,11 @@
 //    wide), the COPY_GLOBAL instantiation stages nothing: its taps read the
 //    band in global memory through L1, as the first, untiled kernel did,
 //    with the same z steps.
+// What bounds the z step now (scratch builds timed against this one):
+// its four shared-memory loads and the lerps (with one load an update and
+// the lerps folded away it runs 20 % faster; conflict-free addresses do
+// not help), then the per-angle work spread over ZR updates (the angle's
+// coordinates, the copies, the barrier).
 // The wrapper (ops/backprojection_cuda.py) bounds the tile of every (block,
 // angle) on the host from the geometry, picks the largest block shape whose
 // ring fits the shared memory (else COPY_GLOBAL), and passes the tile's
@@ -56,8 +84,10 @@
 // explicitly rounded intrinsics (__fmul_rn, __fadd_rn, __fsub_rn,
 // __frcp_rn), which nvcc never contracts into an FMA.  They round like the
 // separate tensor operations of the plain version, so both pick the same
-// taps and differ only by the rounding of the lerp, which is written as
-// before.
+// taps and differ only by the rounding of the lerp, written as a + f (b - a)
+// with explicit FMAs (__fmaf_rn), so that every instantiation rounds it
+// alike: one instruction an update less than the plain version's
+// a (1 - f) + b f.
 //
 // Projections arrive as (C, vp, n_row) contiguous, float (exact mode) or
 // bf16 (fast mode, widened to f32 per tap); the accumulator is (dz, ny, nx)
@@ -85,6 +115,13 @@ constexpr int VEC = 16;    // bytes per asynchronous copy
 // by element or by cp.async, or read from global memory (no ring fits).
 constexpr int COPY_ELEMENT = 0, COPY_ASYNC = 1, COPY_GLOBAL = 2;
 
+// 1.5 * 2^23: for 0 <= x < 2^22, x + ROUND rounded down is floor(x) + ROUND
+// exactly, and its bits are FLOOR_BITS + floor(x).  The wrapper refuses a
+// detector of more than 2^22 pixels a side, so every h and v that takes a
+// tap lies in that range.
+constexpr float ROUND = 12582912.0f;
+constexpr unsigned FLOOR_BITS = 0x4B400000u;
+
 struct BpParams {
   int C, n_col, n_row, vp, v_lo;
   int dz, ny, nx;
@@ -95,6 +132,7 @@ struct BpParams {
   float h_min, inv_lpr, inv_lpc, vb;
   int pitch, tile_h;       // tile row pitch and height, in elements / rows
   int by;                  // the block's rows of y
+  int lanes_lg;            // log2 of the threads sharing a tile row's copies
 };
 
 __device__ __forceinline__ float widen(float q) { return q; }
@@ -127,30 +165,46 @@ __device__ __forceinline__ Angle angle_of(const BpParams& p, float xm,
   a.w = 0.5f * (u * u);
   const float h = __fsub_rn(
       __fmul_rn(__fsub_rn(__fmul_rn(t, factor), p.h_min), p.inv_lpr), 0.5f);
-  const float h0f = floorf(h);
-  a.ok = front && h0f >= 0.f && h0f <= (float)(p.n_row - 2);
-  a.h0 = (int)h0f;
-  a.fh = __fsub_rn(h, h0f);
+  // 0 <= floor(h) <= n_row - 2, i.e. 0 <= h < n_row - 1 (false for NaN);
+  // there floor(h) comes from the round-down add, with no conversion
+  a.ok = front && h >= 0.f && h < (float)(p.n_row - 1);
+  const float sh = __fadd_rd(h, ROUND);
+  a.h0 = (int)(__float_as_uint(sh) - FLOOR_BITS);
+  a.fh = __fsub_rn(h, __fsub_rn(sh, ROUND));
   a.fscale = __fmul_rn(factor, p.inv_lpc);
   return a;
 }
 
 // Footprint of one angle: the first tile column (aligned down for the
-// copies), the first band row, and the tile's width and height.
-struct Footprint { int col0, row0, width, height; };
+// copies), the first band row, the tile's width and height, and the range
+// [v_in, v_out) of v over which a slice takes the interior z step: its
+// upper tap row is on the detector and in the tile.
+struct __align__(16) Footprint {
+  int col0, row0, width, height;
+  float v_in, v_out;
+};
+
+__device__ __forceinline__ Footprint make_footprint(const BpParams& p,
+                                                    int col0, int row0,
+                                                    int width, int height) {
+  const int base = p.v_lo + row0;      // detector row of tile row 0
+  const int top = min(p.n_col - 2, base + height - 2);
+  return Footprint{col0, row0, width, height, (float)max(base, 0),
+                   (float)(top + 1)};
+}
 
 // The footprint of one angle on a block whose voxels span x0 .., y0 ..
-// and nz slices from z-block slice zb, as (first tile column, first band
-// row, width, height).  The projection of a box lies in the hull of its
-// corners' projections (h and v are linear-fractional in x, y, z while
-// every voxel is in front of the source), so the corner voxels' h and v,
-// widened by one pixel for the float32 rounding of the others, bound every
-// tap: columns floor(h) .. +1 and band rows floor(v) - v_lo .. +1, clamped
-// as the taps are.  A corner at or behind the source takes the whole band.
-// The width is aligned for the copies and, like the height, clamped into
-// the planned tile (a no-op where the host's bound holds).
-__device__ int4 corner_footprint(const BpParams& p, int x0, int y0, int zb,
-                                 int nz, float sn, float cs, int align) {
+// and nz slices from z-block slice zb.  The projection of a box lies in the
+// hull of its corners' projections (h and v are linear-fractional in x, y,
+// z while every voxel is in front of the source), so the corner voxels' h
+// and v, widened by one pixel for the float32 rounding of the others, bound
+// every tap: columns floor(h) .. +1 and band rows floor(v) - v_lo .. +1,
+// clamped as the taps are.  A corner at or behind the source takes the
+// whole band.  The width is aligned for the copies and, like the height,
+// clamped into the planned tile (a no-op where the host's bound holds).
+__device__ Footprint corner_footprint(const BpParams& p, int x0, int y0,
+                                      int zb, int nz, float sn, float cs,
+                                      int align) {
   float h_min = FLT_MAX, h_max = -FLT_MAX, v_min = FLT_MAX, v_max = -FLT_MAX;
   bool front = true;
   const int xs[2] = {x0, min(x0 + BX - 1, p.nx - 1)};
@@ -186,7 +240,7 @@ __device__ int4 corner_footprint(const BpParams& p, int x0, int y0, int zb,
   if (front) {
     const float hl = floorf(h_min) - 1.f, hh = floorf(h_max) + 1.f;
     if (hh < 0.f || hl > (float)(p.n_row - 2)) {
-      return make_int4(0, 0, 0, 0);        // no voxel is on the detector
+      return make_footprint(p, 0, 0, 0, 0);    // no voxel is on the detector
     }
     c_lo = max((int)hl, 0);
     c_hi = min((int)hh, p.n_row - 2);
@@ -198,61 +252,202 @@ __device__ int4 corner_footprint(const BpParams& p, int x0, int y0, int zb,
   const int col0 = c_lo & ~(align - 1);
   const int width = min((c_hi + 2 - col0 + align - 1) & ~(align - 1),
                         p.pitch);
-  return make_int4(col0, r_lo, width, min(r_hi + 2 - r_lo, p.tile_h));
+  return make_footprint(p, col0, r_lo, width,
+                        min(r_hi + 2 - r_lo, p.tile_h));
 }
 
-// The four taps of one voxel at tile offset i: (h, h+1) in the upper row
-// and in the lower row.
+// The four taps of one update: (h, h+1) in its upper row and in the row
+// below.  Staged taps read the tile at a byte offset from the start of the
+// block's shared memory, the lower row a pitch of bytes further; global
+// taps read the band, at an element offset.
 struct Quad { float q11, q21, q12, q22; };
 
-template <bool GLOBAL, typename T>
-__device__ __forceinline__ Quad taps(const T* tile, int i, int pitch) {
-  if constexpr (GLOBAL) {
-    return Quad{ldg(tile + i), ldg(tile + i + 1), ldg(tile + i + pitch),
-                ldg(tile + i + pitch + 1)};
-  } else {
-    return Quad{widen(tile[i]), widen(tile[i + 1]), widen(tile[i + pitch]),
-                widen(tile[i + pitch + 1])};
+template <typename T, int P>
+struct SharedTaps {
+  static constexpr unsigned col = sizeof(T);          // bytes
+  unsigned pitch_bytes;                                // used where P == 0
+  const unsigned char* base;
+  __device__ __forceinline__ unsigned row() const {
+    return P ? sizeof(T) * P : pitch_bytes;
+  }
+  __device__ __forceinline__ Quad operator()(unsigned off) const {
+    const T* q = reinterpret_cast<const T*>(base + off);
+    const T* l = reinterpret_cast<const T*>(base + off + row());
+    return Quad{widen(q[0]), widen(q[1]), widen(l[0]), widen(l[1])};
+  }
+};
+
+template <typename T>
+struct GlobalTaps {
+  static constexpr unsigned col = 1u;                 // elements
+  unsigned n_row;
+  const T* base;
+  __device__ __forceinline__ unsigned row() const { return n_row; }
+  __device__ __forceinline__ Quad operator()(unsigned off) const {
+    const T* q = base + off;
+    return Quad{ldg(q), ldg(q + 1), ldg(q + n_row), ldg(q + n_row + 1)};
+  }
+};
+
+// acc + w * bilinear(q; fh, fv), each lerp as a + f (b - a)
+__device__ __forceinline__ float update(float acc, const Quad& q, float fh,
+                                        float fv, float w) {
+  const float top = __fmaf_rn(fh, __fsub_rn(q.q21, q.q11), q.q11);
+  const float bot = __fmaf_rn(fh, __fsub_rn(q.q22, q.q12), q.q12);
+  return __fmaf_rn(w, __fmaf_rn(fv, __fsub_rn(bot, top), top), acc);
+}
+
+// Calls f(r, j) for the copies of a footprint, E elements each: rows
+// r < height, columns j < width, j a multiple of E.  2^lanes_lg threads
+// share a tile row (the wrapper's choice, from the pitch); each keeps its
+// column and strides over the rows, so a copy costs no division, and the
+// row loop is unrolled, so that a thread's copies issue back to back.
+template <int E, int NT, typename F>
+__device__ __forceinline__ void for_each_copy(const BpParams& p,
+                                              const Footprint& fp, int tid,
+                                              F&& f) {
+  const int lanes = 1 << p.lanes_lg, rows = NT >> p.lanes_lg;
+  for (int j = (tid & (lanes - 1)) * E; j < fp.width; j += lanes * E) {
+#pragma unroll 4
+    for (int r = tid >> p.lanes_lg; r < fp.height; r += rows) f(r, j);
   }
 }
 
-template <typename T, int COPY>
+// Stages one angle's footprint into a tile of `pitch` elements: cp.async
+// of 16 B, or element by element.  The footprint is taken by value: read
+// through a reference into shared memory, which the copies write, it
+// would be read again after every copy, and wait for it.
+template <typename T, int NT, int COPY>
 __device__ __forceinline__ void stage(const BpParams& p, const T* frame,
-                                      const Footprint& fp, T* tile, int tid,
-                                      int nthreads) {
+                                      const Footprint fp, T* tile, int pitch,
+                                      int tid) {
   const T* src = frame + (size_t)fp.row0 * p.n_row + fp.col0;
   if constexpr (COPY == COPY_ASYNC) {
-    constexpr int E = VEC / sizeof(T);            // elements per copy
-    const int per_row = fp.width / E;
-    const int n = fp.height * per_row;
-    for (int i = tid; i < n; i += nthreads) {
-      const int r = i / per_row, j = (i - r * per_row) * E;
-      __pipeline_memcpy_async(tile + r * p.pitch + j,
+    for_each_copy<VEC / (int)sizeof(T), NT>(p, fp, tid, [&](int r, int j) {
+      __pipeline_memcpy_async(tile + r * pitch + j,
                               src + (size_t)r * p.n_row + j, VEC);
-    }
+    });
   } else {
-    const int n = fp.height * fp.width;
-    for (int i = tid; i < n; i += nthreads) {
-      const int r = i / fp.width, j = i - r * fp.width;
-      tile[r * p.pitch + j] = src[(size_t)r * p.n_row + j];
+    for_each_copy<1, NT>(p, fp, tid, [&](int r, int j) {
+      tile[r * pitch + j] = src[(size_t)r * p.n_row + j];
+    });
+  }
+}
+
+// Accumulates the ZR updates of one column and angle.  slice(k, off, fv,
+// w) gives slice k's tap offset, row fraction and weight.  The taps are
+// loaded eight slices at a time before their lerps, so that a group's
+// loads are in flight together (global taps are latency-bound, and shared
+// ones gain too).
+template <int ZR, typename Taps, typename Slice>
+__device__ __forceinline__ void accumulate(float (&acc)[ZR],
+                                           const Taps& taps, float fh,
+                                           Slice&& slice) {
+  constexpr int G = ZR < 8 ? ZR : 8;
+#pragma unroll
+  for (int g = 0; g < ZR; g += G) {
+    Quad q[G];
+    float fv[G], w[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      unsigned off;
+      slice(g + k, off, fv[k], w[k]);
+      q[k] = taps(off);
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      acc[g + k] = update(acc[g + k], q[k], fh, fv[k], w[k]);
     }
   }
 }
 
-template <typename T, int BY, int ZR, int COPY>
+// The z steps of one column and angle, over its ZR slices.  `col` is the
+// offset of the angle's tap column in tile row 0, `row_base` the detector
+// row of tile row 0, `row_max` the last tile row an upper tap may take.
+//
+// Interior: every slice's v lies in [v_in, v_out), so floor(v) is the
+// round-down add's, the tap row its bits less FLOOR_BITS, folded into the
+// one multiply-add that makes the tap offset.
+template <int ZR, typename Taps>
+__device__ __forceinline__ void z_interior(float (&acc)[ZR],
+                                           const float (&zm)[ZR],
+                                           const Angle& a, float vb,
+                                           const Taps& taps, unsigned col,
+                                           int row_base) {
+  // opaque to the compiler, which would otherwise take the row back out
+  // of it and pay a subtraction per update
+  const unsigned row = taps.row();
+  unsigned base;
+  asm("mov.b32 %0, %1;" : "=r"(base)
+      : "r"(col - (unsigned)row_base * row - FLOOR_BITS * row));
+  accumulate(acc, taps, a.fh,
+             [&](int k, unsigned& off, float& fv, float& w) {
+    const float v = __fadd_rn(__fmul_rn(zm[k], a.fscale), vb);
+    const float s = __fadd_rd(v, ROUND);
+    fv = __fsub_rn(v, __fsub_rn(s, ROUND));
+    off = __float_as_uint(s) * row + base;
+    w = a.w;
+  });
+}
+
+// Border: some slice is off the detector or outside the tile.  The border
+// test on v is a 0/1 factor on the weight, the tap row is clamped into the
+// tile, so the ZR slices' loads still issue back to back.
+template <int ZR, typename Taps>
+__device__ __forceinline__ void z_border(float (&acc)[ZR],
+                                         const float (&zm)[ZR],
+                                         const Angle& a, const BpParams& p,
+                                         const Taps& taps, unsigned col,
+                                         int row_base, int row_max) {
+  const float v_last = (float)(p.n_col - 2);   // last valid upper tap
+  accumulate(acc, taps, a.fh,
+             [&](int k, unsigned& off, float& fv, float& w) {
+    const float v = __fadd_rn(__fmul_rn(zm[k], a.fscale), p.vb);
+    const float v0f = floorf(v);
+    w = a.w * (v0f >= 0.f && v0f <= v_last ? 1.f : 0.f);
+    fv = __fsub_rn(v, v0f);
+    const int tr = min(max((int)v0f - row_base, 0), row_max);
+    off = (unsigned)tr * taps.row() + col;
+  });
+}
+
+template <int ZR, typename Taps>
+__device__ __forceinline__ void z_steps(float (&acc)[ZR],
+                                        const float (&zm)[ZR],
+                                        const Angle& a, const BpParams& p,
+                                        const Footprint& fp, const Taps& taps,
+                                        unsigned origin, int tc) {
+  const unsigned col = origin + (unsigned)tc * taps.col;
+  const int row_base = p.v_lo + fp.row0;
+  // v grows with z, so when the first and the last of the ZR slices are in
+  // [v_in, v_out), all are
+  const float va = __fadd_rn(__fmul_rn(zm[0], a.fscale), p.vb);
+  const float vz = __fadd_rn(__fmul_rn(zm[ZR - 1], a.fscale), p.vb);
+  if (fminf(va, vz) >= fp.v_in && fmaxf(va, vz) < fp.v_out) {
+    z_interior(acc, zm, a, p.vb, taps, col, row_base);
+  } else {
+    z_border(acc, zm, a, p, taps, col, row_base, fp.height - 2);
+  }
+}
+
+// One thread per (x, y) column and ZR slices; tiles of pitch P, or of the
+// launch's pitch where P is 0.
+template <typename T, int BY, int ZR, int P, int COPY>
 __global__ void __launch_bounds__(BX * BY, 4)
 bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
           const float* __restrict__ sinp, const float* __restrict__ cosp,
           const BpParams p) {
   constexpr bool GLOBAL = COPY == COPY_GLOBAL;
+  constexpr int NT = BX * BY;
   extern __shared__ __align__(16) unsigned char smem[];
-  int4* fps = reinterpret_cast<int4*>(smem);                   // C of them
-  const int head = (16 * p.C + 127) & ~127;
+  Footprint* fps = reinterpret_cast<Footprint*>(smem);          // C of them
+  const unsigned head = (sizeof(Footprint) * p.C + 127) & ~127u;
   T* tiles = reinterpret_cast<T*>(smem + head);
-  const int tile_elems = p.tile_h * p.pitch;
+  const int pitch = P ? P : p.pitch;
+  const int tile_elems = p.tile_h * pitch;
+  const unsigned tile_bytes = sizeof(T) * tile_elems;
 
   const int tid = threadIdx.y * BX + threadIdx.x;
-  constexpr int NT = BX * BY;
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   const int zb = blockIdx.z * ZR;
@@ -261,24 +456,21 @@ bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
   const size_t plane = (size_t)p.ny * p.nx;
   float* col = vol + (size_t)zb * plane + (size_t)y * p.nx + x;
 
+  // slices past the block's end (a last z group of nz < ZR) repeat its
+  // last slice, so that they read the taps its footprint holds and take
+  // the interior z step with it; they are never written back
   float acc[ZR];
   float zm[ZR];
 #pragma unroll
   for (int k = 0; k < ZR; ++k) {
     acc[k] = (active && k < nz) ? col[k * plane] : 0.f;
-    zm[k] = __fadd_rn(__fmul_rn((float)(p.z0 + zb + k), p.l_vx_z), p.off_z);
+    zm[k] = __fadd_rn(__fmul_rn((float)(p.z0 + min(zb + k, p.dz - 1)),
+                                p.l_vx_z), p.off_z);
   }
   const float xm = __fadd_rn(__fmul_rn((float)(p.rx1 + x), p.l_vx_x), p.off_x);
   const float ym = __fadd_rn(__fmul_rn((float)(p.ry1 + y), p.l_vx_y), p.off_y);
   const size_t frame = (size_t)p.vp * p.n_row;
-  const float v_last = (float)(p.n_col - 2);   // last valid upper tap
 
-  // The footprint of angle c; without a ring, the whole band.
-  auto footprint = [&](int c) {
-    if constexpr (GLOBAL) return Footprint{0, 0, p.n_row, p.vp};
-    const int4 r = fps[c];
-    return Footprint{r.x, r.y, r.z, r.w};
-  };
   if constexpr (!GLOBAL) {
     // -- prologue: the footprint of every angle, from the block's corners -
     constexpr int ALIGN = COPY == COPY_ASYNC ? VEC / (int)sizeof(T) : 1;
@@ -289,8 +481,8 @@ bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
     __syncthreads();
     for (int c = 0; c < NS - 1; ++c) {      // NS - 1 groups, some empty
       if (c < p.C) {
-        stage<T, COPY>(p, proj + c * frame, footprint(c),
-                       tiles + c * tile_elems, tid, NT);
+        stage<T, NT, COPY>(p, proj + c * frame, fps[c],
+                           tiles + c * tile_elems, pitch, tid);
       }
       __pipeline_commit();
     }
@@ -300,98 +492,90 @@ bp_kernel(float* __restrict__ vol, const T* __restrict__ proj,
   // barrier per angle: it shows angle c's tile landed for every thread, and
   // that every thread is done with angle c-1, whose slot is staged next. ---
   for (int c = 0; c < p.C; ++c) {
-    const T* tile;
+    Footprint fp;
+    unsigned origin = 0;                   // tile offset in shared memory
     if constexpr (GLOBAL) {
-      tile = proj + c * frame;
+      fp = make_footprint(p, 0, 0, p.n_row, p.vp);    // the whole band
     } else {
       __pipeline_wait_prior(NS - 2);
       __syncthreads();
-      const int ahead = c + NS - 1;
-      if (ahead < p.C) {
-        stage<T, COPY>(p, proj + ahead * frame, footprint(ahead),
-                       tiles + (ahead % NS) * tile_elems, tid, NT);
+      fp = fps[c];
+      const int next = c + NS - 1;
+      if (next < p.C) {
+        stage<T, NT, COPY>(p, proj + next * frame, fps[next],
+                           tiles + (next % NS) * tile_elems, pitch, tid);
       }
       __pipeline_commit();
-      tile = tiles + (c % NS) * tile_elems;
+      origin = head + (c % NS) * tile_bytes;
     }
-    const Footprint fp = footprint(c);
     const Angle a = angle_of(p, xm, ym, __ldg(sinp + c), __ldg(cosp + c));
-    if (!(active && a.ok)) continue;
-    const int tc = min(max(a.h0 - fp.col0, 0), p.pitch - 2);
-    const int row_base = p.v_lo + fp.row0;         // detector row of tile row 0
-    const int row_max = fp.height - 2;
-    // v grows with z, so when the first and the last of the ZR slices are on
-    // the detector and inside the tile, all are: no border factor, no clamp.
-    const int ra = (int)floorf(__fadd_rn(__fmul_rn(zm[0], a.fscale), p.vb));
-    const int rb = (int)floorf(
-        __fadd_rn(__fmul_rn(zm[ZR - 1], a.fscale), p.vb));
-    const int r_lo = min(ra, rb), r_hi = max(ra, rb);
-    if (r_lo >= 0 && r_hi <= p.n_col - 2 && r_lo >= row_base &&
-        r_hi - row_base <= row_max) {
-      const int base = tc - row_base * p.pitch;
-#pragma unroll
-      for (int k = 0; k < ZR; ++k) {
-        const float v = __fadd_rn(__fmul_rn(zm[k], a.fscale), p.vb);
-        const float v0f = floorf(v);
-        const float fv = __fsub_rn(v, v0f);
-        const Quad q = taps<GLOBAL>(tile, (int)v0f * p.pitch + base, p.pitch);
-        const float top = q.q11 * (1.f - a.fh) + q.q21 * a.fh;
-        const float bot = q.q12 * (1.f - a.fh) + q.q22 * a.fh;
-        acc[k] += a.w * (top * (1.f - fv) + bot * fv);
+    if (active && a.ok) {
+      if constexpr (GLOBAL) {
+        const int tc = min(max(a.h0, 0), p.n_row - 2);
+        z_steps(acc, zm, a, p, fp,
+                GlobalTaps<T>{(unsigned)p.n_row, proj + c * frame}, 0u, tc);
+      } else {
+        const int tc = min(max(a.h0 - fp.col0, 0), pitch - 2);
+        z_steps(acc, zm, a, p, fp,
+                SharedTaps<T, P>{(unsigned)(sizeof(T) * pitch), smem}, origin,
+                tc);
       }
-      continue;
-    }
-#pragma unroll
-    for (int k = 0; k < ZR; ++k) {
-      const float v = __fadd_rn(__fmul_rn(zm[k], a.fscale), p.vb);
-      const float v0f = floorf(v);
-      const float wk = a.w * (v0f >= 0.f && v0f <= v_last ? 1.f : 0.f);
-      const float fv = __fsub_rn(v, v0f);
-      const int tr = min(max((int)v0f - row_base, 0), row_max);
-      const Quad q = taps<GLOBAL>(tile, tr * p.pitch + tc, p.pitch);
-      const float top = q.q11 * (1.f - a.fh) + q.q21 * a.fh;
-      const float bot = q.q12 * (1.f - a.fh) + q.q22 * a.fh;
-      acc[k] += wk * (top * (1.f - fv) + bot * fv);
     }
   }
   if (!active) return;
+  // the stores' addresses, taken afresh: kept from the loads, they would
+  // hold registers through the loop
+  size_t step = plane;
+  asm volatile("" : "+l"(step));
 #pragma unroll
   for (int k = 0; k < ZR; ++k) {
-    if (k < nz) col[k * plane] = acc[k];
+    if (k < nz) col[k * step] = acc[k];
   }
 }
 
-// The compiled kernels: block shape (BY, ZR) x projection type x copy mode;
-// COPY_GLOBAL only with the largest shape, which the planner gives it.
+// The compiled kernels: block shape (BY, ZR) x projection type x copy mode,
+// at the launch's tile pitch; COPY_GLOBAL only with the largest shape,
+// which the planner gives it.  The largest shape's cp.async kernel is also
+// compiled for tiles of FAST_PITCH elements, the pitch the planner gives
+// footprints of up to 64 columns (the 1024- and 2048-class geometries):
+// there the tap row is one shift-add and the lower taps sit at an
+// immediate offset from the upper ones.
 struct Shape { int by, zr; };
 constexpr Shape SHAPES[] = {{8, 16}, {4, 8}};
 constexpr int N_SHAPES = sizeof(SHAPES) / sizeof(SHAPES[0]);
+constexpr int FAST_PITCH = 64;
 
 template <typename T, int BY, int ZR>
-const void* staged(int copy) {
+const void* staged(int copy, int pitch) {
   if (copy == COPY_ASYNC) {
-    return (const void*)bp_kernel<T, BY, ZR, COPY_ASYNC>;
+    if constexpr (BY == SHAPES[0].by && ZR == SHAPES[0].zr) {
+      if (pitch == FAST_PITCH) {
+        return (const void*)bp_kernel<T, BY, ZR, FAST_PITCH, COPY_ASYNC>;
+      }
+    }
+    return (const void*)bp_kernel<T, BY, ZR, 0, COPY_ASYNC>;
   }
   if (copy == COPY_ELEMENT) {
-    return (const void*)bp_kernel<T, BY, ZR, COPY_ELEMENT>;
+    return (const void*)bp_kernel<T, BY, ZR, 0, COPY_ELEMENT>;
   }
   return nullptr;
 }
 
-// The kernel of (shape, projection type, copy mode), or null if none.
-const void* kernel_for(int shape, int bf16, int copy) {
+// The kernel of (shape, projection type, copy mode, tile pitch), or null
+// if none.
+const void* kernel_for(int shape, int bf16, int copy, int pitch) {
   if (copy == COPY_GLOBAL) {
     if (shape != 0) return nullptr;
-    return bf16 ? (const void*)bp_kernel<__nv_bfloat16, 8, 16, COPY_GLOBAL>
-                : (const void*)bp_kernel<float, 8, 16, COPY_GLOBAL>;
+    return bf16 ? (const void*)bp_kernel<__nv_bfloat16, 8, 16, 0, COPY_GLOBAL>
+                : (const void*)bp_kernel<float, 8, 16, 0, COPY_GLOBAL>;
   }
   if (shape == 0) {
-    return bf16 ? staged<__nv_bfloat16, 8, 16>(copy)
-                : staged<float, 8, 16>(copy);
+    return bf16 ? staged<__nv_bfloat16, 8, 16>(copy, pitch)
+                : staged<float, 8, 16>(copy, pitch);
   }
   if (shape == 1) {
-    return bf16 ? staged<__nv_bfloat16, 4, 8>(copy)
-                : staged<float, 4, 8>(copy);
+    return bf16 ? staged<__nv_bfloat16, 4, 8>(copy, pitch)
+                : staged<float, 4, 8>(copy, pitch);
   }
   return nullptr;
 }
@@ -410,18 +594,19 @@ extern "C" int paris_bp_shapes(int* out, int n) {
 }
 
 // Tiles in the ring; a staged launch needs
-// roundup(16 C, 128) + NS * tile_h * pitch * sizeof(T) bytes of shared
+// roundup(32 C, 128) + NS * tile_h * pitch * sizeof(T) bytes of shared
 // memory, a COPY_GLOBAL launch none.
 extern "C" int paris_bp_ring() { return NS; }
 
 // Resident blocks per SM of one kernel at `smem` bytes of dynamic shared
 // memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative
-// CUDA error code.
+// CUDA error code.  The kernel at the launch's pitch stands for the one at
+// FAST_PITCH: both are held to 64 registers by their launch bounds.
 extern "C" int paris_bp_blocks_per_sm(int device, int shape, int proj_bf16,
                                       int copy, int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -(int)err;
-  const void* fn = kernel_for(shape, proj_bf16, copy);
+  const void* fn = kernel_for(shape, proj_bf16, copy, 0);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
@@ -434,10 +619,12 @@ extern "C" int paris_bp_blocks_per_sm(int device, int shape, int proj_bf16,
 
 // Launches one backprojection of C projections (vp detector rows from v_lo)
 // into the accumulator on `stream`, with block shape `shape`, copy mode
-// `copy` (COPY_ASYNC needs n_row * sizeof(T) and the projection pointer
-// 16-B aligned), a ring of tiles of tile_h rows of `pitch` elements (for
-// COPY_GLOBAL: pitch n_row, tile_h vp) and `smem` bytes of dynamic shared
-// memory.  Returns cudaGetLastError() after the launch (0 = launched).
+// `copy` (COPY_ASYNC needs n_row * sizeof(T), pitch * sizeof(T) and the
+// projection pointer 16-B aligned), a ring of tiles of tile_h rows of
+// `pitch` elements (for COPY_GLOBAL: pitch n_row, tile_h vp) and `smem`
+// bytes of dynamic shared memory.  Returns cudaErrorInvalidValue for a
+// pitch that breaks the copies' alignment, else cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int paris_bp_launch(
     int device, void* stream, float* vol, const void* proj, int proj_bf16,
     const float* sinp, const float* cosp,
@@ -450,16 +637,24 @@ extern "C" int paris_bp_launch(
     int shape, int copy, int pitch, int tile_h, int smem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const void* fn = kernel_for(shape, proj_bf16, copy);
+  const void* fn = kernel_for(shape, proj_bf16, copy, pitch);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const int by = SHAPES[shape].by, zr = SHAPES[shape].zr;
+  const int esize = proj_bf16 ? 2 : 4;
+  if (copy == COPY_ASYNC && pitch * esize % VEC != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // copies per tile row, and the power of two of threads that share them
+  const int per_row = copy == COPY_ASYNC ? pitch * esize / VEC : pitch;
+  int lanes_lg = 0;
+  while ((1 << lanes_lg) < per_row && (1 << lanes_lg) < BX * by) ++lanes_lg;
   const BpParams p{C, n_col, n_row, vp, v_lo, dz, ny, nx, rx1, ry1, z0,
                    off_x, off_y, off_z, l_vx_x, l_vx_y, l_vx_z,
                    d_so, d_sd, safe_min, h_min, inv_lpr, inv_lpc, vb,
-                   pitch, tile_h, SHAPES[shape].by};
+                   pitch, tile_h, by, lanes_lg};
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
-  const int by = SHAPES[shape].by, zr = SHAPES[shape].zr;
   const dim3 block(BX, by, 1);
   const dim3 grid((nx + BX - 1) / BX, (ny + by - 1) / by, (dz + zr - 1) / zr);
   void* args[] = {&vol, &proj, &sinp, &cosp, const_cast<BpParams*>(&p)};

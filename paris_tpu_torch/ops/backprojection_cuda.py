@@ -29,8 +29,9 @@ from ..utils.profiling import span
 from .backprojection_torch import (BpGrid, backproject_chunk_torch,
                                    kernel_constants)
 
-__all__ = ["SHAPES", "RING", "SMEM_LIMIT", "COPY_ELEMENT", "COPY_ASYNC",
-           "COPY_GLOBAL", "TilePlan", "plan_tile", "launch_plan",
+__all__ = ["SHAPES", "RING", "SMEM_LIMIT", "FAST_PITCH", "COPY_ELEMENT",
+           "COPY_ASYNC", "COPY_GLOBAL", "COPY_NAMES", "TilePlan", "plan_tile",
+           "launch_plan",
            "backproject_chunk_cuda", "backproject_chunk", "blocks_per_sm",
            "compiled_shapes"]
 
@@ -40,10 +41,22 @@ SHAPES = ((32, 8, 16), (32, 4, 8))
 RING = 3
 SMEM_LIMIT = 232448          # shared memory one block may use (227 KB)
 _VEC = 16                    # bytes per asynchronous copy
+_FOOTPRINT = 32              # shared bytes per angle of footprints
+# Tile rows start a multiple of 128 B (32 banks) apart, so that the taps
+# of a warp's neighbouring columns fall in distinct banks whatever rows
+# they read
+_ROW_BYTES = 128
+# The tile pitch for which the kernel compiles the largest shape's cp.async
+# instantiation with a constant pitch (its FAST_PITCH); other pitches take
+# the instantiation that reads the launch's pitch
+FAST_PITCH = 64
 # How a launch's taps reach the projections (the kernel's copy modes):
 # staged into the ring element by element or by cp.async, or read from
 # global memory where no ring fits (block shape 0, no shared memory).
 COPY_ELEMENT, COPY_ASYNC, COPY_GLOBAL = 0, 1, 2
+COPY_NAMES = ("element", "async", "global")
+# The kernel's floor of h and v is exact below 2^22 pixels
+MAX_DETECTOR_SIDE = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,23 +114,29 @@ def plan_tile(grid: BpGrid, dz: int, ny: int, nx: int, z_first: int,
               roi_xy: Tuple[int, int], vp: int, C: int, elem_bytes: int,
               async_copy: bool) -> TilePlan:
     """The tile ring of one launch: the first of ``SHAPES`` whose ring of
-    ``RING`` tiles (plus 16 B per angle of footprints) fits ``SMEM_LIMIT``,
-    else a ``COPY_GLOBAL`` plan.  ``z_first`` is the global z of the
-    block's first slice; ``async_copy`` says whether rows can be copied
-    16 B at a time.  Raises ValueError, naming the geometry, when no ring
-    fits and the band is too large for the kernel's 32-bit tap offsets."""
+    ``RING`` tiles (plus 32 B per angle of footprints) fits
+    ``SMEM_LIMIT``, else a ``COPY_GLOBAL`` plan.  A tile row holds the
+    footprint's aligned width; its pitch is rounded up to 128 B where the
+    ring still fits.
+    ``z_first`` is the global z of the block's first slice; ``elem_bytes``
+    the projections' element size; ``async_copy`` says whether rows can be
+    copied 16 B at a time.  Raises ValueError, naming the geometry, when
+    no ring fits and the band is too large for the kernel's 32-bit tap
+    offsets."""
     n_row = grid.det.n_row
     align = _VEC // elem_bytes if async_copy else 1
-    head = -(-16 * C // 128) * 128
+    head = -(-_FOOTPRINT * C // 128) * 128
     for i, (_, by, zr) in enumerate(SHAPES):
         width, tile_h = _tile_bound(grid, dz, ny, nx, z_first, roi_xy, vp,
                                     by, zr)
-        pitch = min(-(-(width + align - 1) // align) * align,
+        width = min(-(-(width + align - 1) // align) * align,
                     -(-n_row // align) * align)
-        smem = head + RING * tile_h * pitch * elem_bytes
-        if smem <= SMEM_LIMIT:
-            return TilePlan(i, COPY_ASYNC if async_copy else COPY_ELEMENT,
-                            pitch, tile_h, smem)
+        row = -(-width * elem_bytes // _ROW_BYTES) * _ROW_BYTES
+        for pitch in (row // elem_bytes, width):
+            smem = head + RING * tile_h * pitch * elem_bytes
+            if smem <= SMEM_LIMIT:
+                return TilePlan(i, COPY_ASYNC if async_copy
+                                else COPY_ELEMENT, pitch, tile_h, smem)
     if grid.det.n_col * n_row >= 2 ** 31:
         raise ValueError(
             f"no block shape's tile ring fits {SMEM_LIMIT} B of shared "
@@ -164,6 +183,10 @@ def _check(volume, projections, sin_phi, cos_phi, grid, v_lo):
     if not 0 <= v_lo <= n_col - vp:
         raise ValueError(f"band of {vp} rows from v_lo={v_lo} does not lie "
                          f"on the detector's {n_col} rows")
+    if max(n_row, n_col) > MAX_DETECTOR_SIDE:
+        raise ValueError(f"detector {grid.det} has more than "
+                         f"{MAX_DETECTOR_SIDE} pixels a side, beyond the "
+                         "kernel's floor of h and v")
     for name, a in (("sin_phi", sin_phi), ("cos_phi", cos_phi)):
         if a.dtype != torch.float32 or tuple(a.shape) != (C,):
             raise ValueError(f"{name} must be ({C},) float32, got "
@@ -190,7 +213,8 @@ def backproject_chunk_cuda(
     """Accumulate C projections (detector rows [v_lo, v_lo + vp)) into
     ``volume`` IN PLACE with the kernel; returns ``volume``.  ``plan``
     (default ``launch_plan``'s) is for holding one copy mode against
-    another.  Adds one to ``backproject_chunk_cuda.launches`` per launch."""
+    another.  Adds one to ``backproject_chunk_cuda.launches`` per launch,
+    and to ``backproject_chunk_cuda.launches_by_copy[COPY_NAMES[copy]]``."""
     v_lo = int(v_lo)
     _check(volume, projections, sin_phi, cos_phi, grid, v_lo)
     dz, ny, nx = volume.shape
@@ -219,10 +243,12 @@ def backproject_chunk_cuda(
             f"backprojection kernel launch failed: CUDA error {rc} "
             f"({lib.paris_bp_error_string(rc).decode()})")
     backproject_chunk_cuda.launches += 1
+    backproject_chunk_cuda.launches_by_copy[COPY_NAMES[plan.copy]] += 1
     return volume
 
 
 backproject_chunk_cuda.launches = 0
+backproject_chunk_cuda.launches_by_copy = dict.fromkeys(COPY_NAMES, 0)
 
 
 def blocks_per_sm(plan: TilePlan, bf16: bool, device=None) -> int:

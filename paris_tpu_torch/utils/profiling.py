@@ -236,12 +236,16 @@ def count(name: str, n: int = 1) -> None:
 
 def counters() -> Dict[str, int]:
     """The process's counters, with the kernels' launch counts
-    (``backproject_chunk_cuda.launches``, ``u16_round_trip.launches``)."""
+    (``backproject_chunk_cuda.launches``, and per copy mode, i.e. per
+    instantiation of K1, ``backproject_chunk_cuda.launches.async``,
+    ``.element`` and ``.global``; ``u16_round_trip.launches``)."""
     from ..ops.backprojection_cuda import backproject_chunk_cuda
     from ..pipeline import u16_round_trip
     with _counts_lock:
         out = dict(_counts)
     out["backproject_chunk_cuda.launches"] = backproject_chunk_cuda.launches
+    for mode, n in backproject_chunk_cuda.launches_by_copy.items():
+        out[f"backproject_chunk_cuda.launches.{mode}"] = n
     out["u16_round_trip.launches"] = u16_round_trip.launches
     return out
 

@@ -16,6 +16,8 @@ It also holds the backprojection cases of tests/test_pallas_kernel.py
 tests/test_torch_backprojection.py holds against the JAX package.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -26,8 +28,9 @@ from paris_tpu_torch.geometry import (DetectorGeometry, VolumeGeometry,
 from paris_tpu_torch.benchmarks import gather_micro as gm
 from paris_tpu_torch.benchmarks import gather_micro2 as gm2
 from paris_tpu_torch.ops.backprojection_cuda import (
-    COPY_ELEMENT, COPY_GLOBAL, RING, SHAPES, TilePlan, backproject_chunk,
-    backproject_chunk_cuda, blocks_per_sm, compiled_shapes, launch_plan)
+    COPY_ELEMENT, COPY_GLOBAL, COPY_NAMES, RING, SHAPES, TilePlan,
+    backproject_chunk, backproject_chunk_cuda, blocks_per_sm,
+    compiled_shapes, launch_plan)
 from paris_tpu_torch.ops.backprojection_torch import (backproject_chunk_torch,
                                                       make_bp_grid)
 
@@ -38,23 +41,39 @@ TALL = DetectorGeometry(96, 640, 2.0, 2.0, 0.0, 0.0, 500.0, 500.0, 2.0)
 CASES = ["zero", "accumulate", "z_offset_roi", "offset_detector",
          "top_edge", "tall_center"]
 
+# Cases at the edges of the kernel's floor of v: at angle 0 the voxel
+# centres of the middle x column project exactly onto detector rows (the
+# detector is offset by half a pixel, the magnification 2 of 2-mm pixels
+# maps 1-mm voxels to one row each, and f = 2, 1/l_px_col = 1/2 are exact),
+# so v = z - 8 is integral: in the interior z step (a block of rows
+# 8..55), and through v = 0 and v = n_col - 2 = 78 in the border step (the
+# whole volume, v from -8 to 88).
+EDGE = DetectorGeometry(96, 80, 2.0, 2.0, 0.0, 0.5, 256.0, 256.0, 2.0)
+EDGE_VOLUME = VolumeGeometry(dim_x=49, dim_y=40, dim_z=97, l_vx_x=1.0,
+                             l_vx_y=1.0, l_vx_z=1.0)
+EDGE_CASES = ["row_boundaries", "border_limits"]
+
 
 def bp_case(name):
     """(det, vol, projections, angles_deg, initial volume, z_offset, roi,
     atol against the JAX ops) for one case of tests/test_pallas_kernel.py."""
-    if name in ("zero", "accumulate", "z_offset_roi"):
+    if name in EDGE_CASES:
+        det, seed, ang = EDGE, 41, [0.0, 33.0, 180.0, 261.5]
+    elif name in ("zero", "accumulate", "z_offset_roi"):
         det, seed, ang = BASE, 7, [0.0, 33.0, 261.5]
     elif name in ("offset_detector", "offset_block"):
         det, seed, ang = OFFSET, 9, [10.0, 190.0]
     else:
         det, seed, ang = TALL, 23, [15.0, 200.0]
-    vol = derive_volume_geometry(det)
+    vol = EDGE_VOLUME if det is EDGE else derive_volume_geometry(det)
     rng = np.random.default_rng(seed)
     projs = rng.standard_normal((len(ang), det.n_col, det.n_row)).astype(
         np.float32)
     shape, z_off, roi, atol = vol.shape_zyx, 0, (0, 0, 0), 1e-4
     if name == "z_offset_roi":
         shape, z_off, roi = (16, vol.dim_y, vol.dim_x), 24, (5, 3, 2)
+    elif name == "row_boundaries":
+        shape, z_off = (48, vol.dim_y, vol.dim_x), 16
     elif name == "offset_block":
         # a block inside the detector at delta_t = -2: band rows 26..50
         shape, z_off = (16, vol.dim_y, vol.dim_x), 34
@@ -94,7 +113,7 @@ def _on_card(dev, name, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + EDGE_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, name, dtype):
     """Gate: max|kernel - plain| <= 1e-4 max|plain|.  Both read the same
     (bf16-rounded in fast mode) projections and pick the same taps; they
@@ -102,9 +121,12 @@ def test_kernel_matches_plain_on_card(cuda_device, name, dtype):
     vol0, args = _on_card(cuda_device, name, dtype)
     plain = backproject_chunk_torch(vol0.clone(), *args)
     before = backproject_chunk_cuda.launches
+    by_copy = dict(backproject_chunk_cuda.launches_by_copy)
     kern = backproject_chunk_cuda(vol0.clone(), *args)
     torch.cuda.synchronize(cuda_device)
     assert backproject_chunk_cuda.launches == before + 1
+    by_copy["async"] += 1
+    assert backproject_chunk_cuda.launches_by_copy == by_copy
     scale = float(plain.abs().max())
     assert float((kern - plain).abs().max()) <= 1e-4 * scale
 
@@ -144,8 +166,11 @@ def test_kernel_paths_match_plain_on_card(cuda_device, path, dtype):
     assert blocks_per_sm(plan, dtype == torch.bfloat16, cuda_device) >= 1
     zero = torch.zeros(shape, device=cuda_device)
     plain = backproject_chunk_torch(zero.clone(), projs, sin, cos, grid, 2)
+    mode = COPY_NAMES[plan.copy]
+    before = backproject_chunk_cuda.launches_by_copy[mode]
     kern = backproject_chunk_cuda(zero.clone(), projs, sin, cos, grid, 2)
     torch.cuda.synchronize(cuda_device)
+    assert backproject_chunk_cuda.launches_by_copy[mode] == before + 1
     scale = float(plain.abs().max())
     assert scale > 0
     assert float((kern - plain).abs().max()) <= 1e-4 * scale
@@ -187,9 +212,11 @@ def test_no_ring_fits_takes_global_taps_on_card(cuda_device, case, dtype):
     zero = torch.zeros(vol.shape_zyx, device=cuda_device)
     plain = backproject_chunk_torch(zero.clone(), projs, sin, cos, grid)
     before = backproject_chunk_cuda.launches
+    direct = backproject_chunk_cuda.launches_by_copy["global"]
     kern = backproject_chunk(zero.clone(), projs, sin, cos, grid)
     torch.cuda.synchronize(cuda_device)
     assert backproject_chunk_cuda.launches == before + 1
+    assert backproject_chunk_cuda.launches_by_copy["global"] == direct + 1
     scale = float(plain.abs().max())
     assert scale > 0
     assert float((kern - plain).abs().max()) <= 1e-4 * scale
@@ -197,7 +224,7 @@ def test_no_ring_fits_takes_global_taps_on_card(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + EDGE_CASES)
 def test_global_taps_equal_staged_taps_on_card(cuda_device, name, dtype):
     """The global-memory instantiation, forced where a ring fits, equals
     the staged kernel bit for bit: the same taps, the same arithmetic."""
@@ -208,6 +235,26 @@ def test_global_taps_equal_staged_taps_on_card(cuda_device, name, dtype):
     direct = backproject_chunk_cuda(vol0.clone(), *args, plan=plan)
     torch.cuda.synchronize(cuda_device)
     assert torch.equal(direct, staged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", CASES + EDGE_CASES)
+def test_fast_pitch_equals_launch_pitch_on_card(cuda_device, name, dtype):
+    """The kernel compiled for tiles of 64 elements, which these cases'
+    plans take, equals the one at the launch's pitch, forced by a plan of
+    128, bit for bit."""
+    vol0, args = _on_card(cuda_device, name, dtype)
+    p, z_off, roi = args[0], args[4], args[5]
+    plan = launch_plan(args[3], vol0.shape, p, roi[2] + z_off, roi[:2])
+    assert (plan.shape, plan.pitch) == (0, 64)
+    wide = dataclasses.replace(
+        plan, pitch=128,
+        smem=plan.smem + RING * plan.tile_h * 64 * p.element_size())
+    fast = backproject_chunk_cuda(vol0.clone(), *args)
+    other = backproject_chunk_cuda(vol0.clone(), *args, plan=wide)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(other, fast)
 
 
 @pytest.mark.cuda
@@ -234,6 +281,17 @@ def test_wrapper_refuses_bad_inputs(cuda_device):
         backproject_chunk_cuda(vol0, p.half(), s, c, grid)
     with pytest.raises(ValueError, match="cpu"):
         backproject_chunk_cuda(vol0, p, s.cpu(), c, grid)
+    # a detector row past 2^22 pixels, beyond the kernel's floor of h
+    wide = DetectorGeometry((1 << 22) + 8, 4, 1.0, 1.0, 0.0, 0.0, 100.0,
+                            100.0, 1.0)
+    tiny = VolumeGeometry(dim_x=8, dim_y=8, dim_z=2, l_vx_x=1.0, l_vx_y=1.0,
+                          l_vx_z=1.0)
+    one = torch.zeros(1, device=cuda_device)
+    with pytest.raises(ValueError, match="pixels a side"):
+        backproject_chunk_cuda(
+            torch.zeros((2, 8, 8), device=cuda_device),
+            torch.zeros((1, 4, wide.n_row), device=cuda_device), one, one,
+            make_bp_grid(wide, tiny))
     assert backproject_chunk_cuda.launches == before
 
 

@@ -133,7 +133,8 @@ def check_plan(det, vol, dz, z_first, roi_xy, v_lo, vp, C, angles_deg,
         assert plan.smem <= bc.SMEM_LIMIT == 232448
         assert plan.smem >= bc.RING * plan.tile_h * plan.pitch * elem_bytes
         align = 16 // elem_bytes if async_copy else 1
-        assert plan.pitch % align == 0
+        # tile rows a multiple of 128 B (32 banks) apart
+        assert plan.pitch * elem_bytes % 128 == 0
         shape = bc.SHAPES[plan.shape]
         fps = footprints(grid, z_first, roi_xy, dz, ny, nx, v_lo, vp, shape,
                          _blocks(dz, ny, nx, shape, rng), angles_deg, align)
@@ -156,7 +157,7 @@ def check_plan(det, vol, dz, z_first, roi_xy, v_lo, vp, C, angles_deg,
 ANGLES = np.arange(0.0, 360.0, 7.5)
 
 
-@pytest.mark.parametrize("name", cuda_cases.CASES)
+@pytest.mark.parametrize("name", cuda_cases.CASES + cuda_cases.EDGE_CASES)
 def test_kernel_cases_tile_holds_every_tap(name):
     det, vol, projs, ang, vol0, z_off, roi, _ = cuda_cases.bp_case(name)
     dz = vol0.shape[0]
@@ -183,7 +184,12 @@ def test_config3_blocks_tile_holds_every_tap(z0):
                        ANGLES + 1.3, seed=z0)
     for plan in plans.values():       # the largest block shape fits
         assert plan.shape == 0
-        assert plan.tile_h <= 23 and plan.pitch <= 48
+        assert plan.tile_h <= 23 and plan.pitch == 64
+    # its footprints are at most 41 columns wide (44 and 48 aligned for
+    # the float32 and bf16 copies), a pitch of 64 rounded up to 128 B
+    width, _ = bc._tile_bound(make_bp_grid(CONFIG3, vol), 512, vol.dim_y,
+                              vol.dim_x, z0, (0, 0), hi - lo, 8, 16)
+    assert width <= 41
 
 
 @pytest.mark.parametrize("z0", [0, 1024 - 172])
@@ -265,3 +271,259 @@ def test_band_beyond_32_bit_offsets_raises():
     with pytest.raises(ValueError, match="DetectorGeometry.*32-bit"):
         bc.plan_tile(make_bp_grid(det, NEAR_SOURCE), 8, 40, 40, 0, (0, 0),
                      det.n_col, 16, 4, True)
+
+
+def interior_share(det, vol, dz, z_first, v_lo, vp, C, angles_deg, blocks,
+                   elem_bytes=2):
+    """The share of (thread, angle) pairs, over the threads of the sampled
+    ``blocks`` (x, y, z block indices) whose column is on the detector in
+    h at the angle, that take the kernel's interior z step: by the rule
+    of ``z_steps`` in csrc/backproject.cu, the v of the thread's first and
+    last slices (in a last z group of fewer than ZR slices, the block's
+    last) lie in [v_in, v_out) of the block's corner footprint
+    (``make_footprint``), whose rows are clamped into the planned tile.
+    Returns (share, pairs on the detector)."""
+    grid = make_bp_grid(det, vol)
+    k = kernel_constants(grid)
+    n_row, n_col = det.n_row, det.n_col
+    plan = bc.plan_tile(grid, dz, vol.dim_y, vol.dim_x, z_first, (0, 0), vp,
+                        C, elem_bytes, True)
+    bx, by, zr = bc.SHAPES[plan.shape]
+    b = torch.as_tensor(blocks)
+    xs = b[:, 0, None] * bx + torch.arange(bx)            # (B, 32)
+    ys = b[:, 1, None] * by + torch.arange(by)            # (B, by)
+    zb = b[:, 2] * zr
+    z_last = torch.minimum(zb + zr, torch.tensor(dz)) - 1
+    nx, ny = vol.dim_x, vol.dim_y
+    live = (xs < nx)[:, None, :] & (ys < ny)[:, :, None]  # (B, by, 32)
+
+    def coord(i, step, off):
+        return i.to(torch.float32) * k[step] + k[off]
+
+    xm = coord(xs, "l_vx_x", "off_x")[:, None, :]
+    ym = coord(ys, "l_vx_y", "off_y")[:, :, None]
+    zm0 = coord(zb + z_first, "l_vx_z", "off_z")[:, None, None]
+    zm1 = coord(z_last + z_first, "l_vx_z", "off_z")[:, None, None]
+    cx = coord(torch.stack([xs[:, 0], torch.clamp(xs[:, -1], max=nx - 1)],
+                           1), "l_vx_x", "off_x")[:, None, :]   # (B, 1, 2)
+    cy = coord(torch.stack([ys[:, 0], torch.clamp(ys[:, -1], max=ny - 1)],
+                           1), "l_vx_y", "off_y")[:, :, None]   # (B, 2, 1)
+    cz = coord(torch.stack([zb, z_last], 1) + z_first, "l_vx_z",
+               "off_z")[:, :, None, None]                       # (B, 2, 1, 1)
+    on = inside = 0
+    for deg in angles_deg:
+        phi = np.float32(np.deg2rad(np.float32(deg)))
+        sn, cs = np.float32(np.sin(phi)), np.float32(np.cos(phi))
+
+        def project(x, y):
+            s = x * cs + y * sn
+            t = -x * sn + y * cs
+            denom = s + k["d_so"]
+            factor = torch.reciprocal(denom) * k["d_sd"]
+            h = (t * factor - k["h_min"]) * k["inv_lpr"] - 0.5
+            return denom > k["safe_min"], h, factor * k["inv_lpc"]
+
+        front, h, fscale = project(xm, ym)
+        ok = live & front & (h >= 0) & (h < n_row - 1)
+        va, vz = zm0 * fscale + k["vb"], zm1 * fscale + k["vb"]
+        cfront, ch, cfs = project(cx, cy)                   # (B, 2, 2)
+        cv = cz * cfs[:, None] + k["vb"]                     # (B, 2, 2, 2)
+        allf = cfront.flatten(1).all(1)
+        hl = torch.floor(ch.flatten(1).min(1).values) - 1
+        hh = torch.floor(ch.flatten(1).max(1).values) + 1
+        vl = torch.clamp(torch.floor(cv.flatten(1).min(1).values) - 1, min=-1)
+        vh = torch.clamp(torch.floor(cv.flatten(1).max(1).values) + 1,
+                         max=n_col)
+        r_lo = torch.clamp(vl.to(torch.int64) - v_lo, 0, vp - 2)
+        r_hi = torch.clamp(vh.to(torch.int64) - v_lo, 0, vp - 2)
+        r_lo = torch.where(allf, r_lo, 0)
+        r_hi = torch.where(allf, r_hi, vp - 2)
+        height = torch.clamp(r_hi + 2 - r_lo, max=plan.tile_h)
+        miss = allf & ((hh < 0) | (hl > n_row - 2))
+        r_lo, height = torch.where(miss, 0, r_lo), torch.where(miss, 0, height)
+        base = v_lo + r_lo
+        v_in = torch.clamp(base, min=0).to(torch.float32)[:, None, None]
+        v_out = (torch.clamp(base + height - 2, max=n_col - 2) + 1).to(
+            torch.float32)[:, None, None]
+        hit = ok & (torch.minimum(va, vz) >= v_in) \
+            & (torch.maximum(va, vz) < v_out)
+        on += int(ok.sum())
+        inside += int(hit.sum())
+    return inside / on, on
+
+
+@pytest.mark.parametrize("z0,least", [(0, 0.9), (888, 0.99)])
+def test_config5_blocks_mostly_take_the_interior_z_step(z0, least):
+    """Config 5's 296-slice blocks as the c5-block cells run them (on the
+    band of the widest rows over the plan's blocks): over 1024 sampled
+    thread blocks and 32 angles about the circle, nearly every (thread,
+    angle) pair on the detector takes the interior z step, the one that
+    the kernel's conversion-free floor serves: at block 0 all but the
+    pairs whose slices leave the detector at the volume's top, in a block
+    at the middle all (the last z group of 8 slices too)."""
+    vol = derive_volume_geometry(CONFIG5)
+    vp = max(hi - lo for lo, hi in (detector_row_band(CONFIG5, vol, z, 296)
+                                    for z in range(0, vol.dim_z, 296)))
+    v_lo = max(0, min(detector_row_band(CONFIG5, vol, z0, 296)[0],
+                      CONFIG5.n_col - vp))
+    rng = np.random.default_rng(5)
+    bx, by, zr = bc.SHAPES[0]
+    blocks = np.stack([rng.integers(0, -(-vol.dim_x // bx), 1024),
+                       rng.integers(0, -(-vol.dim_y // by), 1024),
+                       rng.integers(0, -(-296 // zr), 1024)], 1)
+    share, on = interior_share(CONFIG5, vol, 296, z0, v_lo, vp, 16,
+                               np.arange(32) * 11.25 + 0.05, blocks)
+    print(f"block at z0 {z0}: interior z step {share:.4%} of {on} "
+          "(thread, angle) pairs")
+    assert on > 1_000_000
+    assert least < share <= 1.0
+
+
+def test_edge_cases_put_v_on_row_boundaries():
+    """The edge cases of tests/test_torch_cuda.py: at angle 0 the middle
+    x column's v is integral at every slice, inside the detector in the
+    ``row_boundaries`` block, and through exactly 0 and n_col - 2 in the
+    ``border_limits`` volume."""
+    for name in cuda_cases.EDGE_CASES:
+        det, vol, _, ang, vol0, z_off, roi, _ = cuda_cases.bp_case(name)
+        assert ang[0] == 0.0
+        k = kernel_constants(make_bp_grid(det, vol))
+        dz, ny, nx = vol0.shape
+        zi = torch.arange(dz) + z_off + roi[2]
+        _, v, _ = _h_v(k, torch.tensor([nx // 2]), torch.arange(ny), zi,
+                       torch.zeros(1), torch.ones(1))
+        v = v[0, :, :, 0]                                 # (z, y)
+        assert torch.equal(v, torch.floor(v))
+        assert torch.equal(v[:, 0], (zi - 8).to(torch.float32))
+        if name == "row_boundaries":
+            assert 0 <= float(v.min()) and float(v.max()) <= det.n_col - 2
+        else:
+            assert {0.0, det.n_col - 2.0, -1.0, det.n_col - 1.0} <= set(
+                v[:, 0].tolist())
+
+
+def test_counters_carry_the_launches_per_copy_mode(monkeypatch):
+    """``counters()`` reports K1's launches per copy mode (the
+    instantiation a run took) beside their total, and they sum to it."""
+    from paris_tpu_torch.utils import profiling
+    fn = bc.backproject_chunk_cuda
+    names = [f"backproject_chunk_cuda.launches.{m}" for m in bc.COPY_NAMES]
+    assert names == ["backproject_chunk_cuda.launches.element",
+                     "backproject_chunk_cuda.launches.async",
+                     "backproject_chunk_cuda.launches.global"]
+    out = profiling.counters()
+    assert sum(out[n] for n in names) == out["backproject_chunk_cuda.launches"]
+    monkeypatch.setattr(fn, "launches", fn.launches + 9)
+    monkeypatch.setattr(fn, "launches_by_copy", {
+        m: n + {"async": 6, "element": 2, "global": 1}[m]
+        for m, n in fn.launches_by_copy.items()})
+    after = profiling.counters()
+    assert [after[n] - out[n] for n in names] == [2, 6, 1]
+    assert sum(after[n] for n in names) == \
+        after["backproject_chunk_cuda.launches"]
+
+
+# k1_compare's cases beside config 5, and the plans their footprints take
+K1_CASE_PLANS = {
+    "rabbit-block": {4: (0, bc.COPY_ASYNC), 2: (0, bc.COPY_ASYNC)},
+    "coarse-voxels": {4: (1, bc.COPY_ASYNC), 2: (0, bc.COPY_ASYNC)},
+    "wide-footprint": {4: (0, bc.COPY_GLOBAL), 2: (1, bc.COPY_ASYNC)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(K1_CASE_PLANS))
+def test_k1_compare_cases_take_the_paths_they_name(name):
+    """RabbitCT's whole volume takes the larger block shape; voxels 6
+    pixels wide the smaller one in float32 and the larger in bf16 (its
+    tiles are half the bytes); voxels 8.4 pixels wide global taps in
+    float32 and, in bf16, the smaller shape with a footprint over 256
+    columns."""
+    from paris_tpu_torch.benchmarks.k1_compare import case
+    det, vol, shape, z0, v_lo, vp, C = case(name)
+    grid = make_bp_grid(det, vol)
+    for elem_bytes, want in K1_CASE_PLANS[name].items():
+        plan = bc.plan_tile(grid, *shape, z0, (0, 0), vp, C, elem_bytes,
+                            True)
+        assert (plan.shape, plan.copy) == want
+        if name == "wide-footprint" and elem_bytes == 2:
+            assert plan.pitch > 256
+
+
+def test_pitch_rounding_never_costs_a_ring_that_fits():
+    """A tile pitch is the footprint's aligned width rounded up to 128 B,
+    except where that ring would overflow the shared memory and the
+    unrounded one fits: then the block shape keeps its ring at the
+    aligned width."""
+    det = DetectorGeometry(2048, 2048, 0.25, 0.25, 0.0, 0.0, 2048.0, 1024.0,
+                           1.0)
+    vol = VolumeGeometry(dim_x=256, dim_y=256, dim_z=64, l_vx_x=0.8,
+                         l_vx_y=0.8, l_vx_z=0.8)
+    grid = make_bp_grid(det, vol)
+    width, tile_h = bc._tile_bound(grid, 64, 256, 256, 0, (0, 0), 2048, 8,
+                                   16)
+    aligned = -(-(width + 3) // 4) * 4
+    assert aligned * 4 % 128 != 0
+    rounded = -(-aligned * 4 // 128) * 32
+    # so many angles that their footprints leave room for the aligned ring
+    # alone
+    crowded = (bc.SMEM_LIMIT - bc.RING * tile_h * aligned * 4) // 128 * 4
+    assert 32 * crowded + bc.RING * tile_h * rounded * 4 > bc.SMEM_LIMIT
+    for C, pitch in ((16, rounded), (crowded, aligned)):
+        plan = bc.plan_tile(grid, 64, 256, 256, 0, (0, 0), 2048, C, 4, True)
+        head = -(-32 * C // 128) * 128
+        assert (plan.shape, plan.pitch) == (0, pitch)
+        assert plan.smem == head + bc.RING * tile_h * pitch * 4
+
+
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_19bp_kernelIfLi8ELi16ELi1EEEvPfPKT_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FADD.RM R2, R3, 12582912 ;
+        /*0020*/                   IMAD R4, R2, 0x100, R5 ;
+        /*0030*/                   LDS R6, [R4+UR4] ;
+        /*0040*/                   LDS R7, [R4+UR4+0x4] ;
+        /*0050*/              @!P0 LDS R8, [R4+UR4+0x100] ;
+        /*0060*/                   LDS R9, [R4+UR4+0x104] ;
+        /*0070*/                   FFMA R10, R6, R7, R8 ;
+        /*0080*/               @P1 BRA 0x00c0 ;
+        /*0090*/                   FRND.FLOOR R2, R3 ;
+        /*00a0*/                   F2I.TRUNC.NTZ R4, R2 ;
+        /*00b0*/                   LDS R6, [R4+UR4] ;
+        /*00c0*/                   EXIT ;
+        /*00d0*/                   NOP ;
+\t\tFunction : _Z5otheri
+        /*0000*/                   LDS R6, [R4] ;
+"""
+
+
+def test_sass_counts_finds_the_straight_runs_with_loads():
+    from paris_tpu_torch.benchmarks.k1_compare import sass_counts
+    out = sass_counts(SASS)
+    (name, info), = out.items()
+    assert "bp_kernel" in name
+    assert info["instructions"] == 13              # the NOP not counted
+    assert info["lds"] == 5 and info["conversions"] == 2
+    assert info["opcodes"]["LDS"] == 5 and info["opcodes"]["FRND"] == 1
+    # (instructions, loads, conversions, first address), most loads first
+    assert info["runs"] == [(8, 4, 0, "0000"), (3, 1, 2, "0090")]
+
+
+def test_ptxas_registers_reads_the_instantiation_the_plan_launches():
+    from paris_tpu_torch.benchmarks.k1_compare import ptxas_registers
+
+    def entry(name, regs, spill):
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\nptxas info    : Function properties\n    0 "
+                f"bytes stack frame, {spill} bytes spill stores, {spill} "
+                f"bytes spill loads\nptxas info    : Used {regs} registers\n")
+    log = (entry("_Z9bp_kernelIfLi8ELi16ELi0ELi0EEv", 60, 0)
+           + entry("_Z9bp_kernelIfLi8ELi16ELi0ELi1EEv", 63, 8)
+           + entry("_Z9bp_kernelIfLi8ELi16ELi64ELi1EEv", 64, 4)
+           + entry("_Z9bp_kernelI13__nv_bfloat16Li8ELi16ELi1EEv", 62, 0))
+    assert ptxas_registers(log, False, bc.TilePlan(0, 1, 64, 20, 0)) == (64, 4)
+    assert ptxas_registers(log, False, bc.TilePlan(0, 1, 96, 20, 0)) == (63, 8)
+    assert ptxas_registers(log, False, bc.TilePlan(0, 0, 64, 20, 0)) == (60, 0)
+    # a build from before PR 20, whose template has no tile pitch
+    assert ptxas_registers(log, True, bc.TilePlan(0, 1, 64, 20, 0)) == (62, 0)
+    assert ptxas_registers(log, True, bc.TilePlan(1, 1, 64, 20, 0)) \
+        == (None, 0)
